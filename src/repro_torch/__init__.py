@@ -1,0 +1,28 @@
+"""repro_torch — the exact-GP serving path in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A second package beside the JAX reference `repro`, with the same module
+layout (`repro/core/pcg.py` <-> `repro_torch/core/pcg.py`) and the same
+public names. It imports `torch` only: nothing of JAX and nothing of
+`repro`. Layering (bottom-up):
+
+    device             resolve `device=None` to the card; force IEEE fp32
+                       matmuls (TF32 off) at import
+    core.kernels_math  kernel algebra (KernelSpec trees + KernelParams
+                       NamedTuples of tensors, expression parser)
+    kernels.kmvm       the two CUDA kernels (fused kernel-MVM, and the same
+                       plus the CG dot block) with their plain versions
+    kernels.ops        spec -> fused-pass plan, dtype policy, block_fn
+    core.partitioned   row-blocked K @ V
+    core.operators     KernelOperator registry: dense / partitioned / pallas
+    core.pivchol       pivoted-Cholesky preconditioner
+    core.pcg           batched PCG (standard / pipelined / fused step)
+    core.predcache     mean cache + Lanczos variance cache, predictions
+    serve              PosteriorArtifact, PredictionEngine, MicroBatcher
+    launch.serve_gp    fit-or-load a posterior and serve requests
+
+Every entry point puts its tensors on `cuda` unless the caller passes
+`device="cpu"`; with no card and no explicit device it raises.
+"""
+
+from . import device  # noqa: F401  (sets the TF32 switches)

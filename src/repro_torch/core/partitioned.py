@@ -1,0 +1,94 @@
+"""Partitioned kernel matrix-multiplies — the paper's core memory mechanism.
+
+`K_hat @ V` in row partitions: for each block of rows X^(l) only the
+(row_block, n) slab `K_{X^(l) X}` is built, multiplied into V and dropped,
+so peak memory is O(row_block * n). PyTorch runs the loop eagerly, so one
+slab is live at a time by construction. The per-slab MVM can be routed to
+the fused CUDA kernel (`repro_torch.kernels.ops.pallas_block_fn`), which
+never builds the slab in device memory at all.
+
+Forward only: the bounded-memory backward (`quad_form_partials`) belongs to
+the training path.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .kernels_math import kernel_matrix, noise_variance
+
+
+def pad_rows(A: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
+    """Zero-pad axis 0 of A up to a multiple; returns (padded, n_pad)."""
+    n = A.shape[0]
+    rem = (-n) % multiple
+    if rem == 0:
+        return A, 0
+    pad = torch.zeros((rem,) + tuple(A.shape[1:]), dtype=A.dtype, device=A.device)
+    return torch.cat([A, pad], dim=0), rem
+
+
+def map_row_chunks(fn, Z: torch.Tensor, chunk_size: int):
+    """Apply `fn` to fixed-shape row chunks of Z; concatenate, strip padding.
+
+    Z is zero-padded up to a multiple of `chunk_size`, so every call sees the
+    same (chunk_size, ...) shape (the serving engine's fixed launch shape).
+    `fn` may return a tensor or a tuple of tensors whose leading axis is the
+    chunk axis. Nothing (n_rows, n)-sized is ever live at once.
+    """
+    n = Z.shape[0]
+    Zp, _ = pad_rows(Z, chunk_size)
+    if Zp.shape[0] == 0:  # empty query: one all-padding chunk, sliced to 0
+        Zp = torch.zeros((chunk_size,) + tuple(Z.shape[1:]), dtype=Z.dtype,
+                         device=Z.device)
+    outs = [fn(Zp[i:i + chunk_size]) for i in range(0, Zp.shape[0], chunk_size)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(xs, dim=0)[:n] for xs in zip(*outs))
+    return torch.cat(outs, dim=0)[:n]
+
+
+def _block_kmvm_dense(kernel, Xb, X, V, params):
+    """One row-partition's contribution: K(Xb, X) @ V, slab materialized."""
+    return kernel_matrix(kernel, Xb, X, params) @ V
+
+
+def kmvm_rect(
+    kernel,
+    X_rows: torch.Tensor,
+    X_cols: torch.Tensor,
+    V: torch.Tensor,
+    params,
+    *,
+    row_block: int = 1024,
+    block_fn: Callable | None = None,
+) -> torch.Tensor:
+    """K(X_rows, X_cols) @ V in row partitions; no noise term."""
+    inner = block_fn if block_fn is not None else (
+        lambda Xb, X, Vb, p: _block_kmvm_dense(kernel, Xb, X, Vb, p))
+    outs = [inner(X_rows[i:i + row_block], X_cols, V, params)
+            for i in range(0, X_rows.shape[0], row_block)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def kmvm(
+    kernel,
+    X: torch.Tensor,
+    V: torch.Tensor,
+    params,
+    *,
+    row_block: int = 1024,
+    add_noise: bool = True,
+    noise_floor: float = 1e-4,
+    block_fn: Callable | None = None,
+) -> torch.Tensor:
+    """O(n)-memory K_hat @ V via partitioned row blocks; V is (n, t) or (n,)."""
+    squeeze = V.ndim == 1
+    if squeeze:
+        V = V[:, None]
+    out = kmvm_rect(kernel, X, X, V, params, row_block=row_block,
+                    block_fn=block_fn)
+    if add_noise:
+        out = out + noise_variance(params, noise_floor) * V
+    return out[:, 0] if squeeze else out

@@ -1,0 +1,95 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/*.cu` compiles on its own into a shared library with a plain C
+interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so
+
+at first use, into `build/kernels/` at the root of the checkout (listed in
+`.gitignore`). The file name carries a hash of the source and the flags, so
+an edited source is rebuilt and never confused with a stale library. One
+nvcc process runs per source, all started together. A build that fails
+raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def build(force: bool = False) -> dict:
+    """Compile every source under csrc/ (in parallel). Returns
+    {"seconds": wall time, "ptxas": the -Xptxas -v lines, "libs": paths}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    jobs = []
+    t0 = time.perf_counter()
+    for src in sources:
+        out = _target(src)
+        if out.exists() and not force:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc))
+    lines = []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        os.replace(tmp, out)
+        lines += [ln.strip() for ln in log.splitlines()
+                  if "ptxas" in ln or "spill" in ln]
+    return {"seconds": time.perf_counter() - t0, "ptxas": lines,
+            "libs": [str(_target(s)) for s in sources]}
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built at first use; argtypes declared."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    src = CSRC / "kmvm.cu"
+    if not _target(src).exists():
+        build()
+    lib = ctypes.CDLL(str(_target(src)))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.kmvm_fwd.argtypes = [I, P, P, P, P, P, I, P, I, I, I, I, I, I, P]
+    lib.kmvm_fwd.restype = I
+    lib.kmvm_dots_fwd.argtypes = [I, P, P, P, P, P, P, P, I, P, P, I, I, I, I, P]
+    lib.kmvm_dots_fwd.restype = I
+    lib.kmvm_error_string.argtypes = [I]
+    lib.kmvm_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib

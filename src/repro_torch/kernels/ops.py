@@ -1,0 +1,221 @@
+"""Public wrappers around the fused kernel-MVM kernels.
+
+Handles everything the raw kernels do not: planning a KernelSpec into
+fused passes, lengthscale/weight application, the dtype policy, and a
+`block_fn` adapter so `repro_torch.core.partitioned.kmvm_rect` can route
+its per-partition slab MVMs through the kernel.
+
+Planning (`mvm_plan`), as in `repro.kernels.ops`:
+
+* ONE fused pass carrying every component whose factors are all stationary
+  with a shared-scalar lengthscale; the inputs are pre-scaled by the first
+  such component's lengthscale, every other component enters through its
+  ratio q = (l_ref / l_c)^2 on the same d2 tile;
+* one fused pass per component with an ARD lengthscale;
+* `linear` components as two thin matmuls w (Xi/s) ((Xj/s)^T V);
+* a dense-slab fallback for anything else (linear x stationary products,
+  multi-factor ARD products).
+
+Padding and dtype policy on this card: nothing is padded — the kernels mask
+ragged m, n and d themselves, and t and d keep their sizes (the TPU rule of
+8/16 sublanes x 128 lanes does not apply). Operands are cast to the compute
+dtype (fp32 by default, so fp64 operands run as fp32, as on the reference's
+fused backend; bf16 when asked), all kernel math is fp32, and the result
+returns in V.dtype.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.kernels_math import (
+    canonicalize_kernel,
+    leaf_matrix,
+    normalize_components,
+    softplus,
+)
+
+from .kmvm import kmvm_fused, kmvm_fused_dots
+
+
+class _FusedPass(NamedTuple):
+    components: tuple        # static tuple of factor-kind tuples
+    lengthscale: torch.Tensor  # () or (d,) reference pre-scaling
+    base_weight: object      # V pre-multiplier (first component's weight)
+    scalars: list            # flat per-component scalars (kmvm.scalar_layout)
+
+
+class MVMPlan(NamedTuple):
+    """How a spec executes on the fused backend (returned by `mvm_plan`)."""
+
+    passes: tuple            # _FusedPass fused passes
+    linear_terms: tuple      # (weight, LinearParams) thin-matmul terms
+    fallback_terms: tuple    # kernels_math.Term dense-slab terms
+
+    @property
+    def num_fallback_terms(self) -> int:
+        return len(self.fallback_terms)
+
+
+def _is_scalar_stationary(factors) -> bool:
+    return all(kind != "linear" and p.raw_lengthscale.ndim == 0
+               for kind, p in factors)
+
+
+def _pass_scalars(terms, l_ref, w0) -> list:
+    scal = []
+    for t in terms:
+        scal.append(t.weight / w0)
+        for kind, p in t.factors:
+            ls = softplus(p.raw_lengthscale)
+            # an ARD factor is planned only as a single-factor pass whose
+            # pre-scaling IS this lengthscale, so its ratio is exactly 1
+            scal.append(1.0 if ls.ndim else torch.square(l_ref / ls))
+            if kind == "rq":
+                scal.append(softplus(p.raw_alpha))
+    return scal
+
+
+def mvm_plan(kernel, params) -> MVMPlan:
+    """Plan the fused execution of `kernel` under `params`."""
+    spec, kp = canonicalize_kernel(kernel, params)
+    terms = normalize_components(spec, kp)
+
+    fused, ard, linear, fallback = [], [], [], []
+    for t in terms:
+        kinds = tuple(kind for kind, _ in t.factors)
+        if _is_scalar_stationary(t.factors):
+            fused.append(t)
+        elif kinds == ("linear",):
+            linear.append((t.weight, t.factors[0][1]))
+        elif len(t.factors) == 1 and kinds[0] != "linear":
+            ard.append(t)
+        else:
+            fallback.append(t)
+
+    passes = []
+    if fused:
+        l_ref = softplus(fused[0].factors[0][1].raw_lengthscale)
+        w0 = fused[0].weight
+        passes.append(_FusedPass(
+            components=tuple(tuple(k for k, _ in t.factors) for t in fused),
+            lengthscale=l_ref, base_weight=w0,
+            scalars=_pass_scalars(fused, l_ref, w0)))
+    for t in ard:
+        l_ref = softplus(t.factors[0][1].raw_lengthscale)
+        passes.append(_FusedPass(
+            components=(tuple(k for k, _ in t.factors),),
+            lengthscale=l_ref, base_weight=t.weight,
+            scalars=_pass_scalars([t], l_ref, t.weight)))
+    return MVMPlan(passes=tuple(passes), linear_terms=tuple(linear),
+                   fallback_terms=tuple(fallback))
+
+
+def _compute_dtype(compute_dtype: str | None) -> torch.dtype:
+    return torch.float32 if compute_dtype is None else getattr(torch, compute_dtype)
+
+
+def _pass_scalar_vector(ppass: _FusedPass, device) -> torch.Tensor:
+    """The fp32 scalar vector of one pass (kernel math is fp32)."""
+    return torch.stack([torch.as_tensor(s, device=device).to(torch.float32)
+                        for s in ppass.scalars])
+
+
+def _prescale(ppass: _FusedPass, X, cdt):
+    return (X / ppass.lengthscale).to(cdt).contiguous()
+
+
+def _scale_rhs(ppass: _FusedPass, V, cdt):
+    return (ppass.base_weight * V.to(torch.float32)).to(cdt).contiguous()
+
+
+def _run_pass(ppass: _FusedPass, Xi, Xj, V, cdt):
+    """One fused launch; returns the (m, t) fp32 contribution."""
+    return kmvm_fused(ppass.components, _prescale(ppass, Xi, cdt),
+                      _prescale(ppass, Xj, cdt), _scale_rhs(ppass, V, cdt),
+                      _pass_scalar_vector(ppass, Xi.device))
+
+
+def _mixed_dot(A, B, cdt):
+    """A @ B on cdt operands with fp32 accumulation (a bf16 x bf16 product
+    is exact in fp32, so upcasting the rounded operands is the same)."""
+    return A.to(cdt).to(torch.float32) @ B.to(cdt).to(torch.float32)
+
+
+def kmvm_block(kernel, Xi, Xj, V, params, *, compute_dtype=None) -> torch.Tensor:
+    """K(Xi, Xj) @ V via the fused plan; arbitrary shapes and dtypes.
+
+    Semantics identical to `repro_torch.kernels.ref.kmvm_ref` (no noise
+    term). `compute_dtype` is the operand dtype of the kernel's products:
+    None/"float32" is the exact path, "bfloat16" halves operand traffic.
+    Tile sizes are the kernel's own (no `bm`/`bn`, no interpret mode).
+    """
+    cdt = _compute_dtype(compute_dtype)
+    squeeze = V.ndim == 1
+    if squeeze:
+        V = V[:, None]
+
+    plan = mvm_plan(kernel, params)
+    acc = None
+    for ppass in plan.passes:
+        out = _run_pass(ppass, Xi, Xj, V, cdt)
+        acc = out if acc is None else acc + out
+    for w, p in plan.linear_terms:
+        s = softplus(p.raw_scale)
+        proj = _mixed_dot((Xj / s).T, V.to(torch.float32), cdt)   # (d, t)
+        out = w * _mixed_dot(Xi / s, proj, cdt)
+        acc = out if acc is None else acc + out
+    for term in plan.fallback_terms:
+        K = None
+        for kind, p in term.factors:
+            Kf = leaf_matrix(kind, p, Xi.to(torch.float32), Xj.to(torch.float32))
+            K = Kf if K is None else K * Kf
+        out = term.weight * _mixed_dot(K, V.to(torch.float32), cdt)
+        acc = out if acc is None else acc + out
+
+    out = acc.to(V.dtype)
+    return out[:, 0] if squeeze else out
+
+
+def fused_pass_or_none(kernel, params) -> _FusedPass | None:
+    """The single fused pass covering the WHOLE spec, or None when the spec
+    needs anything else — the gate for the one-launch fused-CG step."""
+    mp = mvm_plan(kernel, params)
+    if len(mp.passes) == 1 and not mp.linear_terms and not mp.fallback_terms:
+        return mp.passes[0]
+    return None
+
+
+def kmvm_fused_matmat(kernel, X, V, R, params, *, compute_dtype=None):
+    """K(X, X) @ V plus the CG dot block, in ONE kernel launch.
+
+    Returns (KV (n, t) fp32, dots (4, t) fp32) with dots rows
+    [<Kv, v>, <r, v>, <r, r>, <v, v>] per column. No noise term: the caller
+    adds sigma^2 V to KV and sigma^2 <v, v> to dots[0]. Raises ValueError
+    unless the spec plans to a single fused pass.
+    """
+    cdt = _compute_dtype(compute_dtype)
+    ppass = fused_pass_or_none(kernel, params)
+    if ppass is None:
+        raise ValueError(
+            f"kmvm_fused_matmat needs a single-fused-pass plan; "
+            f"{kernel!r} plans to {mvm_plan(kernel, params)}")
+    Xs = _prescale(ppass, X, cdt)
+    # the row views enter UNSCALED and fp32
+    return kmvm_fused_dots(
+        ppass.components, Xs, Xs, _scale_rhs(ppass, V, cdt),
+        V.to(torch.float32).contiguous(), R.to(torch.float32).contiguous(),
+        _pass_scalar_vector(ppass, X.device))
+
+
+def pallas_block_fn(kernel, *, compute_dtype=None):
+    """Adapter for `partitioned.kmvm_rect(..., block_fn=...)`: per-partition
+    slab MVMs go through the fused kernel instead of the dense slab. (The
+    name keeps the reference's, as the backend key "pallas" does.)"""
+
+    def fn(Xb, X, V, params):
+        return kmvm_block(kernel, Xb, X, V, params, compute_dtype=compute_dtype)
+
+    return fn

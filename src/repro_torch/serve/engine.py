@@ -1,0 +1,89 @@
+"""PredictionEngine — chunked GP prediction from a PosteriorArtifact.
+
+Restores an artifact onto any registered KernelOperator backend on one
+device and serves `predict(Xstar)` with a FIXED chunk size over the test
+set: every launch sees the same (chunk_size, d) shape
+(`partitioned.map_row_chunks` pads the tail chunk), and one chunk's
+(chunk, r) cross-products are live at a time, so large test batches stream
+against large training sets. `compute_dtype="bfloat16"` re-binds the
+operator with bf16 cross-MVMs; cache state stays fp32.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.core.operators import make_operator
+from repro_torch.core.partitioned import map_row_chunks
+from repro_torch.core.predcache import predict_mean, predict_var_cached
+
+from .artifact import PosteriorArtifact
+
+_KEEP = "__keep__"  # sentinel: inherit the artifact's compute_dtype
+
+
+class PredictionEngine:
+    """Serves mean + variance predictions from a restored artifact.
+
+    backend: registry key override (None = the artifact's). compute_dtype:
+    override of the operator's matmul dtype (default: the artifact's).
+    chunk_size: rows per launch. include_noise: add sigma^2 to variances.
+    device: where the engine computes (None = the card; raises when there
+    is none).
+    """
+
+    def __init__(self, artifact: PosteriorArtifact, *,
+                 backend: str | None = None,
+                 compute_dtype: str | None = _KEEP,
+                 chunk_size: int = 1024,
+                 include_noise: bool = True,
+                 device=None):
+        config = artifact.config
+        if backend is not None:
+            config = config._replace(backend=backend)
+        if compute_dtype is not _KEEP:
+            config = config._replace(compute_dtype=compute_dtype)
+        self.config = config
+        self.chunk_size = int(chunk_size)
+        self.include_noise = include_noise
+        self.op = make_operator(config, artifact.X, artifact.params, device=device)
+        dev = self.op.device
+        self.artifact = artifact._replace(
+            X=self.op.X, params=self.op.params,
+            mean_cache=artifact.mean_cache.to(dev),
+            var_Q=artifact.var_Q.to(dev),
+            var_T_chol=artifact.var_T_chol.to(dev),
+            solve_rel_residual=artifact.solve_rel_residual.to(dev))
+        self._cache = self.artifact.cache()
+        # counters; several batcher threads may drive one engine
+        self.chunks_run = 0
+        self.rows_served = 0
+        self._counter_lock = threading.Lock()
+
+    def _predict_chunk(self, Xc: torch.Tensor):
+        mean = predict_mean(self.op, Xc, self._cache)
+        var = predict_var_cached(self.op, Xc, self._cache,
+                                 include_noise=self.include_noise)
+        return mean, var
+
+    def warmup(self) -> None:
+        """One chunk before traffic arrives (builds the kernels on the card)."""
+        d = self.op.X.shape[1]
+        self._predict_chunk(torch.zeros((self.chunk_size, d), dtype=self.op.dtype,
+                                        device=self.op.device))
+        if self.op.device.type == "cuda":
+            torch.cuda.synchronize(self.op.device)
+
+    def predict(self, Xstar) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, var) for (m, d) query points; any m, one chunk shape."""
+        Xstar = torch.as_tensor(Xstar, device=self.op.device).to(self.op.dtype)
+        if Xstar.ndim == 1:
+            Xstar = Xstar[None, :]
+        m = Xstar.shape[0]
+        out = map_row_chunks(self._predict_chunk, Xstar, self.chunk_size)
+        with self._counter_lock:
+            self.chunks_run += -(-max(m, 1) // self.chunk_size)
+            self.rows_served += m
+        return out

@@ -1,0 +1,127 @@
+"""Atomic, integrity-checked checkpoints — the reference's on-disk layout.
+
+    <dir>/step_<k>/arrays.npz        flat {path: np.ndarray}
+    <dir>/step_<k>/MANIFEST.json     shapes/dtypes/crc32 per array + meta
+    <dir>/step_<k>/.COMPLETE         written last; restore requires it
+
+Writes go to `step_<k>.tmp/` and are renamed into place, so a preempted
+writer never corrupts the latest complete checkpoint. The npz keys are the
+reference's `jax.tree_util.keystr` paths — ``['params'].raw_noise``,
+``['params'].nodes[0].raw_outputscale``, ``['X']`` — over a tree of dicts
+(keys sorted, as jax flattens them), NamedTuples (field order) and tuples,
+so that each package reads the other's files.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def tree_map_with_keys(fn, tree: Any, prefix: str = ""):
+    """Rebuild `tree` with every leaf replaced by fn(keystr, leaf), walking
+    it in jax's flatten order."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_keys(fn, tree[k], f"{prefix}[{k!r}]")
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_keys(fn, v, f"{prefix}.{f}")
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_keys(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def flatten_with_keys(tree: Any) -> list[tuple[str, Any]]:
+    """[(keystr, leaf)] in jax's flatten order."""
+    out: list = []
+    tree_map_with_keys(lambda k, leaf: out.append((k, leaf)), tree)
+    return out
+
+
+def to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any,
+                    meta: dict | None = None) -> str:
+    """Atomically write `tree` (nested dicts/NamedTuples of tensors) at `step`."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    arrays = {k: to_numpy(v) for k, v in flatten_with_keys(tree)}
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    manifest = {
+        "step": step,
+        "meta": meta or {},
+        "arrays": {
+            k: {"shape": list(v.shape), "dtype": str(v.dtype),
+                "crc32": zlib.crc32(np.ascontiguousarray(v).tobytes())}
+            for k, v in arrays.items()
+        },
+    }
+    with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    with open(os.path.join(tmp, ".COMPLETE"), "w") as f:
+        f.write("ok")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def _complete_steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if os.path.exists(os.path.join(directory, name, ".COMPLETE")):
+                steps.append(int(name.split("_")[1]))
+    return sorted(steps)
+
+
+def load_checkpoint(directory: str, template: Any, step: int | None = None,
+                    *, verify: bool = True) -> tuple[Any, int, dict]:
+    """Restore numpy arrays into the structure of `template`; returns
+    (tree, step, meta). Values come back exactly as saved."""
+    steps = _complete_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no complete checkpoint under {directory}")
+    step = steps[-1] if step is None else step
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+
+    if verify:
+        for k, info in manifest["arrays"].items():
+            if zlib.crc32(np.ascontiguousarray(arrays[k]).tobytes()) != info["crc32"]:
+                raise IOError(f"checkpoint corruption in {k}: crc mismatch")
+            if list(arrays[k].shape) != info["shape"]:
+                raise IOError(f"checkpoint corruption in {k}: shape mismatch")
+
+    def restore(key, tmpl_leaf):
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing array {key}")
+        arr = arrays[key]
+        if tuple(arr.shape) != tuple(np.shape(tmpl_leaf)):
+            raise ValueError(f"{key}: checkpoint shape {arr.shape} != template "
+                             f"{np.shape(tmpl_leaf)}")
+        return arr
+
+    return tree_map_with_keys(restore, template), step, manifest["meta"]

@@ -1,0 +1,106 @@
+"""The port stands alone: no JAX, nothing of `repro`, and no silent CPU.
+
+* No file under src/repro_torch/, and not chip_smoke.py, imports `jax` or
+  `repro` (an AST scan).
+* With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
+* Entry points with no `device` raise when there is no card, rather than
+  running on the CPU.
+* A non-CPU tensor handed to a kernel wrapper never reaches the plain
+  version (with a real CUDA tensor: tests/test_torch_gpu.py).
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.kernels_math import init_params
+from repro_torch.core.operators import OperatorConfig, make_operator
+from repro_torch.kernels import kmvm
+from repro_torch.serve import PredictionEngine, fit_posterior
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_runs_with_jax_unimportable():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.core.kernels_math import init_params\n"
+        "from repro_torch.core.operators import OperatorConfig, make_operator\n"
+        "from repro_torch.serve import PredictionEngine, fit_posterior\n"
+        "import repro_torch.launch.serve_gp, repro_torch.interop\n"
+        "X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)\n"
+        "op = make_operator(OperatorConfig(backend='pallas'), X, init_params(),"
+        " device='cpu')\n"
+        "art = fit_posterior(op, np.sin(X[:, 0]), precond_rank=8, lanczos_rank=8)\n"
+        "m, v = PredictionEngine(art, device='cpu', chunk_size=16).predict(X[:5])\n"
+        "assert torch.isfinite(m).all() and torch.isfinite(v).all()\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_tf32_is_off():
+    assert repro_torch.device is not None  # importing the package sets them
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((8, 2), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_operator(OperatorConfig(), X, init_params())
+    op = make_operator(OperatorConfig(backend="dense"),
+                       X + np.arange(8, dtype=np.float32)[:, None],
+                       init_params(), device="cpu")
+    art = fit_posterior(op, np.ones(8, np.float32), precond_rank=2, lanczos_rank=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PredictionEngine(art)
+    from repro_torch.launch import serve_gp
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_gp.main(["--n", "16"])
+
+
+@pytest.mark.parametrize("dots", (False, True))
+def test_non_cpu_tensor_never_reaches_plain(monkeypatch, dots):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a non-CPU tensor")
+
+    monkeypatch.setattr(kmvm, "kmvm_plain", boom)
+    monkeypatch.setattr(kmvm, "kmvm_dots_plain", boom)
+    meta = {"device": "meta"}
+    X, V = torch.empty((8, 3), **meta), torch.empty((8, 1), **meta)
+    scalars = torch.empty((2,), **meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if dots:
+            kmvm.kmvm_fused_dots((("rbf",),), X, X, V, V, V, scalars)
+        else:
+            kmvm.kmvm_fused((("rbf",),), X, X, V, scalars)
