@@ -1,8 +1,9 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and skipped):
+Every phase runs, in this order (any failure exits non-zero; nothing is
+caught and skipped):
 
 1. Device: name, count, torch/CUDA versions, nvidia-smi name and power limit.
 2. Build: compile the CUDA kernels from `src/repro_torch/kernels/csrc/`
@@ -28,12 +29,43 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    iterations it needs depend on the data draw, so the draw is fixed
    (dataset seed 0, seeded independently of PYTHONHASHSEED), and that
    draw converges well inside the 400-iteration cap.
-5. The `kernels` JSON line, then the last line
+5. Block-sparse kernel B4 (`kmvm_blocksparse`) against its plain version
+   (same tolerances): plan tiles 8, 32, 64 and 256 on ragged n, t in
+   {1, 9, 128}, fp32 and bf16, specs `matern32 * wendland2`, `wendland4`,
+   `rbf * wendland2 + matern32 * wendland4` and the non-compact `matern32`
+   on its all-active plan, where B4 must also equal B1 within the same
+   tolerance. Then B4 is timed at the spatial path's shape (n = 2^18, tile
+   256, t = 1 and t = 9) beside its plain version and its bound.
+6. Spatial (the `examples/spatial_gp.py` configuration): the clustered 2-D
+   field (32 stations, sigma 0.03, dataset seed 0) at n = 2^18 training
+   points, `matern32 * wendland2` from noise 0.3 and radius 0.15 on the
+   `blocksparse` backend in fp32 (plan tile 256). `fit_exact_gp(method=
+   "adam")` takes SPATIAL_STEPS full-data steps (precond rank 50, train CG
+   <= 50, warm-start engine, drift replans); `fit_posterior` at the trained
+   hyperparameters (rank 50, Lanczos rank 100, residual <= 0.01 within 400
+   iterations); the artifact is saved and loaded (plan digest verified);
+   the Morton-sorting engine (chunk 1024) is checked against the unchunked
+   result (<= 1e-5); 200 requests x 8 points from 8 clients go through the
+   MicroBatcher. B4's launch counter is set to 0 just before and read just
+   after; it must be > 0. Then the engine's cross-covariance launch for
+   one Morton-sorted 1024-query chunk (64-row query tiles against the
+   256-row plan tiles, query rows repeated per column segment, t = 1 for
+   the mean and t = 100 for the variance) is held against B4's plain
+   version on the same operands (2e-4 relative to max|out|) and timed. n
+   is cut from the paper's 2^20 (PERF.md).
+7. Cross-check: the MLL value and Eq. 2 gradients on `blocksparse` (B4)
+   against the `partitioned` backend on the card at n = 2^13, with the
+   same injected probes and preconditioner, within the conformance
+   tolerances (value 3e-5 relative; hyperparameter gradients rtol 5e-3,
+   atol 5e-4; the X gradient, whose entries are sums of large cancelling
+   terms at this n, within 5e-3 of its largest entry).
+8. The `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: a kernel's `bound_ms` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
-67 TFLOP/s (H100 SXM fp32 outside the tensor cores, NVIDIA's data sheet).
+67 TFLOP/s (H100 SXM fp32 outside the tensor cores, NVIDIA's data sheet);
+B4 counts the operations of the entries its plan holds active.
 """
 
 from __future__ import annotations
@@ -41,15 +73,23 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_TRAIN = 1 << 16
 DATA_SEED = 0
+SPATIAL_N = 1 << 18
+SPATIAL_TEST = 4096
+SPATIAL_EXPR = "matern32 * wendland2"
+SPATIAL_STEPS = 2
+CROSSCHECK_N = 1 << 13
+DEV = "cuda"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -138,12 +178,15 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _bound_ms(components, m, n, d, t, itemsize, dots: bool) -> tuple:
-    """(least ms the card could take, "operations" or "bytes")."""
+def _bound_ms(components, m, n, d, t, itemsize, dots: bool,
+              entries: int | None = None, extra_bytes: int = 0) -> tuple:
+    """(least ms the card could take, "operations" or "bytes"). `entries`:
+    the kernel entries the work holds (m n for the dense kernels, the
+    plan's active entries for B4)."""
     ops_pair = 2 * d + 2 * t + 4 + sum(
         2 + sum(1 + KIND_OPS[k] for k in kinds) for kinds in components)
-    flops = ops_pair * m * n
-    nbytes = (m + n) * d * itemsize + n * t * itemsize + m * t * 4
+    flops = ops_pair * (m * n if entries is None else entries)
+    nbytes = (m + n) * d * itemsize + n * t * itemsize + m * t * 4 + extra_bytes
     if dots:
         nbytes += 2 * m * t * 4 + 4 * t * 4
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
@@ -260,11 +303,314 @@ def phase_serve() -> dict:
     return report
 
 
+def make_spatial_field(n: int, seed: int = 0):
+    """The clustered 2-D sensor field of `examples/spatial_gp.py` (a numpy
+    copy): 32 station clusters on the unit square, sigma 0.03, a smooth
+    latent surface plus noise 0.1. Returns float32 (X, y, latent)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(size=(32, 2))
+    X = centers[rng.integers(0, 32, n)] + 0.03 * rng.normal(size=(n, 2))
+    latent = (np.sin(6.0 * X[:, 0]) * np.cos(4.0 * X[:, 1])
+              + 0.5 * np.sin(9.0 * X[:, 0] * X[:, 1]))
+    y = latent + 0.1 * rng.normal(size=n)
+    return (X.astype(np.float32), y.astype(np.float32),
+            latent.astype(np.float32))
+
+
+# B4 cases: spec -> constrained support radius (None: not compact)
+B4_SPECS = {"matern32 * wendland2": 0.15, "wendland4": 0.2,
+            "rbf * wendland2 + matern32 * wendland4": 0.15, "matern32": None}
+B4_TILES = ((8, 517), (32, 1000), (64, 2093), (256, 5001))  # (tile, n)
+
+
+def _b4_problem(expr, radius, X, t, dtype, tile, seed):
+    """(components, Xp, Vp, scalars, row_ptr, cols, plan) of one fused pass
+    of `expr` over the plan of X, on the card."""
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.kernels.ops import fused_pass_or_none
+    from repro_torch.sparse import build_plan
+    from repro_torch.sparse.blocksparse import fused_operands
+
+    params = init_kernel_params(expr, lengthscale=0.2, radius=radius,
+                                noise=0.3, device=DEV)
+    plan = build_plan(expr, X, params, tile=tile)
+    ppass = fused_pass_or_none(expr, params)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    Xs = torch.as_tensor(X[plan.perm], device=DEV)
+    V = torch.randn((X.shape[0], t), generator=g, device=DEV)
+    Xp, Vp, scalars = fused_operands(ppass, Xs, V, dtype)
+    return (ppass.components, Xp, Vp, scalars,
+            torch.as_tensor(plan.row_ptr, device=DEV),
+            torch.as_tensor(plan.pair_cols, device=DEV), plan)
+
+
+def phase_blocksparse(X_spatial) -> dict:
+    from repro_torch.kernels import kmvm
+    from repro_torch.sparse import kmvm_sparse
+
+    def rel(a, b):
+        return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+    rng = np.random.default_rng(3)
+    worst, cases = 0.0, 0
+    for expr, radius in B4_SPECS.items():
+        for tile, n in B4_TILES:
+            X = rng.uniform(size=(n, 2)).astype(np.float32)
+            for t in (1, 9, 128):
+                for dtype in (torch.float32, torch.bfloat16):
+                    comps, Xp, Vp, sc, rp, cols, plan = _b4_problem(
+                        expr, radius, X, t, dtype, tile, cases)
+                    out = kmvm_sparse.kmvm_blocksparse(comps, Xp, Xp, Vp, sc,
+                                                       rp, cols, tile=plan.tile)
+                    torch.cuda.synchronize()
+                    ref = kmvm_sparse.kmvm_blocksparse_plain(
+                        comps, Xp, Xp, Vp, sc, rp, cols, tile=plan.tile)
+                    err = rel(out, ref)
+                    if radius is None:  # all-active: B4 is the dense product
+                        err = max(err, rel(out, kmvm.kmvm_fused(
+                            comps, Xp, Xp, Vp, sc)))
+                    tol = TOL[dtype]
+                    cases += 1
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise SystemExit(
+                            f"[blocksparse] MISMATCH {expr} tile {tile} n {n} "
+                            f"t {t} {dtype}: {err:.2e} > {tol} (fill "
+                            f"{plan.fill:.3f})")
+    log(f"[blocksparse] {cases} cases match their plain versions (and B1 on "
+        f"the all-active plans); worst error / tolerance {worst:.3f}")
+
+    # the spatial path's shape: 2^18 Morton-sorted points, tile 256, the
+    # training plan at radius 0.15 (+10% margin), lengthscale 0.693
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.kernels.ops import fused_pass_or_none
+    from repro_torch.sparse import build_plan
+    from repro_torch.sparse.blocksparse import fused_operands
+
+    params = init_kernel_params(SPATIAL_EXPR, noise=0.3, radius=0.15,
+                                device=DEV)
+    plan = build_plan(SPATIAL_EXPR, X_spatial, params, tile=256)
+    ppass = fused_pass_or_none(SPATIAL_EXPR, params)
+    n, d = X_spatial.shape
+    Xs = torch.as_tensor(X_spatial[plan.perm], device=DEV)
+    rp = torch.as_tensor(plan.row_ptr, device=DEV)
+    cols = torch.as_tensor(plan.pair_cols, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    entries = plan.entries
+    counts = np.diff(plan.row_ptr)
+    log(f"[blocksparse] main path plan: n={n} tile {plan.tile}, "
+        f"{plan.num_tiles} tiles, {plan.num_pairs} pairs, fill {plan.fill:.4f}, "
+        f"{entries:.4g} entries per MVM, pairs per row mean "
+        f"{counts.mean():.1f} max {plan.kmax}")
+    rows, abs_err = [], {}
+    for t, reps in ((1, 5), (9, 3)):
+        V = torch.randn((n, t), generator=g, device=DEV)
+        Xp, Vp, sc = fused_operands(ppass, Xs, V)
+
+        def kern():
+            return kmvm_sparse.kmvm_blocksparse(ppass.components, Xp, Xp, Vp,
+                                                sc, rp, cols, tile=plan.tile)
+
+        def plain():
+            return kmvm_sparse.kmvm_blocksparse_plain(
+                ppass.components, Xp, Xp, Vp, sc, rp, cols, tile=plan.tile)
+
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = rel(out, ref)
+        abs_err[t] = float(torch.max(torch.abs(out - ref)))
+        if not err <= TOL[torch.float32]:
+            raise SystemExit(f"[blocksparse] MISMATCH main path t={t}: {err:.2e}")
+        ms = _time_ms(kern, reps)
+        plain_ms = _time_ms(plain, 1)
+        bound, bound_by = _bound_ms(
+            ppass.components, n, n, d, t, 4, False, entries=entries,
+            extra_bytes=4 * (plan.num_pairs + plan.num_tiles + 1) - n * d * 4)
+        rows.append({"shape": [n, n, d, t], "entries": entries, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by})
+        log(f"[blocksparse] time B4 (n={n}, d={d}, t={t}, tile {plan.tile}): "
+            f"{ms:.3f} ms (bound {bound:.3f} ms, {bound / ms:.1%} of it), "
+            f"plain {plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+    return {"rows": rows, "abs_err": abs_err, "worst": worst, "cases": cases}
+
+
+def phase_spatial(X, y, Xte, lte) -> dict:
+    """Train -> precompute -> artifact round trip -> engine check ->
+    MicroBatcher traffic on the blocksparse backend; B4's launch counter
+    covers exactly this path."""
+    from repro_torch.core.gp import ExactGP, ExactGPConfig, rmse
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.kernels import kmvm
+    from repro_torch.launch import serve_gp
+    from repro_torch.serve import (
+        PredictionEngine, fit_posterior, load_artifact, save_artifact)
+    from repro_torch.sparse import kmvm_sparse, morton_order
+    from repro_torch.train.gp_trainer import GPTrainConfig, fit_exact_gp
+
+    n = X.shape[0]
+    Xd = torch.as_tensor(X, device=DEV)
+    yd = torch.as_tensor(y, device=DEV)
+    params0 = init_kernel_params(SPATIAL_EXPR, noise=0.3, radius=0.15,
+                                 device=DEV)
+    gp = ExactGP(ExactGPConfig(kernel=SPATIAL_EXPR, precond_rank=50,
+                               train_max_cg_iters=50, lanczos_rank=100,
+                               backend="blocksparse"), device=DEV)
+    art_dir = os.path.join(HERE, "build", "smoke_spatial_artifact")
+    shutil.rmtree(art_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmvm.reset_launch_counts()
+    kmvm_sparse.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    res = fit_exact_gp(gp, Xd, yd, method="adam", params0=params0,
+                       cfg=GPTrainConfig(plain_adam_steps=SPATIAL_STEPS, seed=0),
+                       verbose=True, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_b4 = kmvm_sparse.launch_counts["kmvm_blocksparse"]
+    steps = [{k: tm[k] for k in ("mode", "cg_iters", "iters_per_rhs", "drift",
+                                 "seconds")} for tm in res.telemetry]
+    log(f"[spatial] trained {len(res.loss_trace)} steps in {train_s:.2f} s: "
+        f"loss {[round(v, 5) for v in res.loss_trace]}, steps {steps}, "
+        f"replans {res.replans}, B4 launches {train_b4}")
+    if not all(np.isfinite(res.loss_trace)):
+        raise SystemExit(f"[spatial] non-finite loss {res.loss_trace}")
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    op = gp.operator(Xd, res.params)  # plans at the trained params
+    plan = op.plan
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    art = fit_posterior(op, yd, generator=gen, precond_rank=50,
+                        lanczos_rank=100, pred_tol=0.01, max_cg_iters=400)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t1
+    fit_b4 = kmvm_sparse.launch_counts["kmvm_blocksparse"] - train_b4
+    rel_res = art.meta["solve_rel_residual"]
+    log(f"[spatial] posterior plan: {plan.num_pairs} pairs, fill "
+        f"{plan.fill:.4f}, {plan.entries:.4g} entries, support "
+        f"{plan.support:.4f}; precompute {precompute_s:.2f} s, rel residual "
+        f"{rel_res:.3e}, B4 launches {fit_b4} (CG steps + 100 Lanczos)")
+    if not rel_res <= 0.01:
+        raise SystemExit(f"[spatial] mean solve residual {rel_res} > 0.01")
+
+    save_artifact(art_dir, art)
+    loaded = load_artifact(art_dir, device=DEV)  # rebuilds + checks the plan
+    if loaded.config.plan.digest != plan.digest:
+        raise SystemExit("[spatial] artifact plan digest changed on load")
+    engine = PredictionEngine(loaded, chunk_size=1024, device=DEV)
+    if not engine.sort_queries:
+        raise SystemExit("[spatial] engine does not sort queries on a compact plan")
+    engine.warmup()
+    Xq = torch.as_tensor(Xte, device=DEV)
+    verify = serve_gp.verify(engine, Xq[:512])
+    if not verify <= 1e-5:
+        raise SystemExit(f"[spatial] verification {verify} > 1e-5")
+    mean, var = engine.predict(Xq)
+    test_rmse = float(rmse(mean, torch.as_tensor(lte, device=DEV)))
+    if not (torch.isfinite(mean).all() and (var > 0).all()):
+        raise SystemExit("[spatial] non-finite or non-positive predictions")
+    traffic = serve_gp.serve_traffic(engine, Xte, requests=200,
+                                     points_per_request=8, clients=8)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kmvm_sparse.launch_counts)
+    other = dict(kmvm.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    # after the count: one Morton-sorted 1024-row chunk of queries, the
+    # engine's cross-covariance launch (64-row query tiles against 256-row
+    # plan tiles, the query rows repeated per column segment) for the mean
+    # (t = 1) and the variance, held against B4's plain version on the same
+    # operands, then timed
+    chunk = Xq[torch.as_tensor(morton_order(Xte), device=DEV)[:1024]]
+    cross_ms, cross_err = {}, {}
+    for rhs in (engine.artifact.mean_cache, engine.artifact.var_Q):
+        t = 1 if rhs.ndim == 1 else rhs.shape[1]
+        args, kwargs = engine.op.cross_launch_operands(chunk, rhs)
+        out = kmvm_sparse.kmvm_blocksparse(*args, **kwargs)
+        torch.cuda.synchronize()
+        ref = kmvm_sparse.kmvm_blocksparse_plain(*args, **kwargs)
+        cross_err[t] = float(torch.max(torch.abs(out - ref))
+                             / torch.max(torch.abs(ref)))
+        if not cross_err[t] <= TOL[torch.float32]:
+            raise SystemExit(f"[spatial] MISMATCH B4 serving launch t={t} "
+                             f"(rows {args[1].shape[0]}, tile {kwargs['tile']}, "
+                             f"row tile {kwargs['row_tile']}): "
+                             f"{cross_err[t]:.2e} > {TOL[torch.float32]}")
+        cross_ms[t] = _time_ms(lambda: engine.op.cross_matvec(chunk, rhs), 5)
+    log(f"[spatial] engine vs unchunked {verify:.2e}; test rmse vs latent "
+        f"{test_rmse:.4f}; p50 {traffic['p50_ms']:.2f} ms p99 "
+        f"{traffic['p99_ms']:.2f} ms qps {traffic['qps']:.1f} over "
+        f"{traffic['batches']} batches; peak memory {peak / 2**30:.2f} GiB; "
+        f"path {total_s:.1f} s; launches {launches} (B1/B2 {other}); "
+        f"cross_matvec of a sorted 1024-query chunk (t: ms) {cross_ms}, "
+        f"its B4 launch vs plain (t: rel err) {cross_err}")
+    if launches["kmvm_blocksparse"] <= 0:
+        raise SystemExit("[spatial] B4 was never launched on the main path")
+    return {"train_s": train_s, "train_b4": train_b4, "loss": res.loss_trace,
+            "steps": steps, "replans": [list(r) for r in res.replans],
+            "fill": plan.fill, "pairs": plan.num_pairs,
+            "entries": plan.entries, "precompute_s": precompute_s,
+            "fit_b4": fit_b4, "rel_residual": rel_res, "verify": verify,
+            "test_rmse": test_rmse, "peak_bytes": peak, "path_s": total_s,
+            "launches": launches, "cross_ms": cross_ms,
+            "cross_err": cross_err, **traffic}
+
+
+def phase_crosscheck(X, y) -> dict:
+    """MLL value and Eq. 2 gradients: blocksparse (B4) against partitioned
+    on the card, same probes and preconditioner."""
+    from repro_torch.core.kernels_math import init_kernel_params, params_leaves
+    from repro_torch.core.mll import (
+        MLLConfig, operator_mll_backward, operator_mll_forward)
+    from repro_torch.core.operators import make_operator
+
+    Xd = torch.as_tensor(X, device=DEV)
+    yd = torch.as_tensor(y, device=DEV)
+    params = init_kernel_params(SPATIAL_EXPR, noise=0.3, radius=0.15,
+                                device=DEV)
+    out = {}
+    precond = probes = None
+    for backend in ("partitioned", "blocksparse"):
+        cfg = MLLConfig(kernel=SPATIAL_EXPR, precond_rank=50, num_probes=8,
+                        max_cg_iters=400, cg_tol=1e-6, backend=backend)
+        op = make_operator(cfg.operator_config(), Xd, params, device=DEV)
+        if precond is None:
+            precond = op.preconditioner(50)
+            probes = precond.sample(
+                torch.Generator(device=DEV).manual_seed(5), 8)
+        (value, aux), (_, u_y, U, pinv_z), _ = operator_mll_forward(
+            op, yd, precond_rank=50, num_probes=8, max_cg_iters=400,
+            min_cg_iters=3, cg_tol=1e-6, precond=precond, probes=probes)
+        cfg = cfg._replace(plan=getattr(op, "plan", None))
+        g_X, _, g_p = operator_mll_backward(cfg, Xd, params, u_y, U, pinv_z, 1.0)
+        out[backend] = (float(value), [g.cpu() for g in params_leaves(g_p)],
+                        g_X.cpu(), int(aux.cg_iterations.max()))
+    (v0, gp0, gx0, it0), (v1, gp1, gx1, it1) = out["partitioned"], out["blocksparse"]
+    dv = abs(v1 - v0)
+    ok = dv < 3e-5 * max(1.0, abs(v0))
+    # hyperparameter gradients: the conformance tolerance per leaf; the X
+    # gradient (each entry a sum of large cancelling terms at this n)
+    # relative to its largest entry
+    worst = max(float(torch.max(torch.abs(a - b) / (5e-4 + 5e-3 * torch.abs(b))))
+                for a, b in zip(gp1, gp0))
+    worst = max(worst, float(torch.max(torch.abs(gx1 - gx0))
+                             / (5e-3 * torch.max(torch.abs(gx0)))))
+    log(f"[crosscheck] n={X.shape[0]}: MLL partitioned {v0:.6f} blocksparse "
+        f"{v1:.6f} (|diff| {dv:.3e}, CG {it0}/{it1}); gradients worst "
+        f"|diff| / tolerance = {worst:.3f} (params {[float(g) for g in gp1]})")
+    if not (ok and worst <= 1.0):
+        raise SystemExit("[crosscheck] blocksparse and partitioned disagree")
+    return {"value_diff": dv, "grad_worst": worst}
+
+
 def main() -> None:
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
     name = phase_device()
     sys.path.insert(0, os.path.join(HERE, "src"))
-    import numpy as np
-
     from repro_torch.data.synthetic import make_regression_dataset
 
     t0 = time.perf_counter()
@@ -272,18 +618,24 @@ def main() -> None:
     s = make_regression_dataset("houseelectric", seed=DATA_SEED,
                                 max_points=N_TRAIN * 9 // 4)
     X_train = torch.as_tensor(np.asarray(s.X_train[:N_TRAIN], np.float32),
-                              device="cuda")
+                              device=DEV)
     del s
     kern = phase_kernels(X_train)
     del X_train
+    Xf, yf, lf = make_spatial_field(SPATIAL_N + SPATIAL_TEST, seed=DATA_SEED)
+    b4 = phase_blocksparse(Xf[:SPATIAL_N])
     serve = phase_serve()
+    spatial = phase_spatial(Xf[:SPATIAL_N], yf[:SPATIAL_N],
+                            Xf[SPATIAL_N:], lf[SPATIAL_N:])
+    Xc, yc, _ = make_spatial_field(CROSSCHECK_N, seed=DATA_SEED)
+    phase_crosscheck(Xc, yc)
     log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s")
 
+    kernels = []
     sources = {"kmvm": ("src/repro_torch/kernels/csrc/kmvm.cu",
                         "src/repro/kernels/kmvm.py:317"),
                "kmvm_dots": ("src/repro_torch/kernels/csrc/kmvm.cu",
                              "src/repro/kernels/kmvm.py:184")}
-    kernels = []
     for i, kname in enumerate(("kmvm", "kmvm_dots")):
         main_row = kern["rows"][kname][0]
         kernels.append({
@@ -293,9 +645,24 @@ def main() -> None:
             "fit_launches": serve["fit_launches"][kname],
             "max_abs_err": kern["abs_err"][1][i],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
             "library_ms": None, "shape": main_row["shape"],
             "timings": kern["rows"][kname]})
+    row = b4["rows"][0]
+    kernels.append({
+        "name": "kmvm_blocksparse", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kmvm_sparse.cu",
+        "replaces": "src/repro/sparse/kmvm_sparse.py:97", "matched": True,
+        "launches": spatial["launches"]["kmvm_blocksparse"],
+        "train_launches": spatial["train_b4"],
+        "fit_launches": spatial["fit_b4"],
+        "max_abs_err": b4["abs_err"][1], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": row["shape"], "entries": row["entries"],
+        "timings": b4["rows"], "cross_chunk_ms": spatial["cross_ms"],
+        "cross_chunk_rel_err": spatial["cross_err"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

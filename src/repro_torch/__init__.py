@@ -1,5 +1,5 @@
-"""repro_torch — the exact-GP serving path in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""repro_torch — exact-GP training and serving in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX reference `repro`, with the same module
 layout (`repro/core/pcg.py` <-> `repro_torch/core/pcg.py`) and the same
@@ -10,14 +10,23 @@ public names. It imports `torch` only: nothing of JAX and nothing of
                        matmuls (TF32 off) at import
     core.kernels_math  kernel algebra (KernelSpec trees + KernelParams
                        NamedTuples of tensors, expression parser)
-    kernels.kmvm       the two CUDA kernels (fused kernel-MVM, and the same
-                       plus the CG dot block) with their plain versions
+    kernels.kmvm       the two dense CUDA kernels (fused kernel-MVM, and the
+                       same plus the CG dot block) with their plain versions
     kernels.ops        spec -> fused-pass plan, dtype policy, block_fn
-    core.partitioned   row-blocked K @ V
+    core.partitioned   row-blocked K @ V and its autograd backward
     core.operators     KernelOperator registry: dense / partitioned / pallas
-    core.pivchol       pivoted-Cholesky preconditioner
+                       (+ blocksparse, registered lazily by sparse)
+    sparse             Morton plan + block mask (same digests as the
+                       reference), the block-sparse CUDA kernel, the
+                       blocksparse backend
+    core.pivchol       pivoted-Cholesky preconditioner (+ probe sampling)
     core.pcg           batched PCG (standard / pipelined / fused step)
+    core.slq, core.mll SLQ log-determinant; the BBMM MLL and its Eq. 2
+                       backward (`exact_mll`, a torch.autograd.Function)
+    core.gp            ExactGP
     core.predcache     mean cache + Lanczos variance cache, predictions
+    optim              Adam, L-BFGS, LR schedules
+    train              warm-started solve engine, `fit_exact_gp`
     serve              PosteriorArtifact, PredictionEngine, MicroBatcher
     launch.serve_gp    fit-or-load a posterior and serve requests
 

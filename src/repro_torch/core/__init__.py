@@ -1,2 +1,3 @@
-"""repro_torch.core — kernel algebra, operators, preconditioner, PCG and
-the prediction caches of the serving path (see the package docstring)."""
+"""repro_torch.core — kernel algebra, operators, preconditioner, PCG, SLQ,
+the BBMM marginal likelihood, ExactGP and the prediction caches (see the
+package docstring)."""

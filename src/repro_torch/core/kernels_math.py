@@ -314,6 +314,30 @@ def params_map(fn, params):
     return fn(params)
 
 
+def params_leaves(params) -> list:
+    """The tensor leaves of a params NamedTuple tree, in field order (the
+    order the reference's pytree flattening gives)."""
+    if isinstance(params, tuple):
+        return [leaf for p in params for leaf in params_leaves(p)]
+    return [params]
+
+
+def params_unflatten(template, leaves):
+    """A tree shaped like `template` with `leaves` (in `params_leaves`
+    order) in place of its leaves."""
+    it = iter(leaves)
+    out = params_map(lambda _: next(it), template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def params_map2(fn, a, b):
+    """fn over the leaves of two trees of the same structure."""
+    return params_unflatten(a, [fn(x, y) for x, y in
+                                zip(params_leaves(a), params_leaves(b))])
+
+
 def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 

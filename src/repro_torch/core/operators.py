@@ -8,6 +8,8 @@ exposes:
     matvec(V)            K_hat @ V        (n, t) -> (n, t); the hot path
     diag()               diag(K_hat)      (n,)
     cross_matvec(Z, V)   K(Z, X) @ V      rectangular MVM for prediction
+    quad_form_grads(A,V) (g_params, g_X) of sum_j a_j^T K_hat v_j — the
+                         bounded-memory backward surface of the MLL
     kernel_rows(Z)       K(Z, X)          dense rows (test oracle RHS)
     prior_diag(Z)        diag(K(Z, Z))
     noise()              sigma^2
@@ -25,8 +27,11 @@ Registry (`make_operator` selects by `OperatorConfig.backend`):
                   of its fused-CG variant. The key keeps the reference's
                   name so that reference configs and artifacts load as
                   they are.
+    blocksparse   distance-pruned MVMs for compactly-supported specs: the
+                  block-sparse CUDA kernel over a `repro_torch.sparse`
+                  plan (registered lazily, as in the reference)
 
-`sharded` and `blocksparse` are not ported yet; asking for them raises.
+`sharded` is not ported yet; asking for it raises.
 
 ``compute_dtype="bfloat16"`` runs the large products on bf16 operands with
 fp32 accumulation; the elementwise kernel math, the noise diagonal and all
@@ -49,7 +54,10 @@ from .kernels_math import (
     kernel_matrix,
     noise_variance,
     normalize_components,
+    params_leaves,
     params_map,
+    params_map2,
+    params_unflatten,
     softplus,
 )
 from .pivchol import make_preconditioner
@@ -68,10 +76,12 @@ class OperatorConfig(NamedTuple):
     compute_dtype: None = the exact path; "bfloat16" = bf16 operands with
                    fp32 accumulation in the large products.
     fused_cg:      the fused-CG step (None = wherever supported, False off).
-    interpret, geom, inner_backend, plan, autotune: the reference's TPU,
-                   mesh, sparsity and tile-autotuner settings. Accepted so
-                   that its configs load; `geom` and `plan` must be None,
-                   the others have no effect on this card.
+    plan:          `repro_torch.sparse.SparsePlan` of the blocksparse
+                   backend; None lets the operator build one.
+    interpret, geom, inner_backend, autotune: the reference's TPU, mesh and
+                   tile-autotuner settings. Accepted so that its configs
+                   load; `geom` must be None, the others have no effect on
+                   this card.
     """
 
     kernel: str = "matern32"
@@ -89,7 +99,7 @@ class OperatorConfig(NamedTuple):
 
 
 _REGISTRY: dict[str, type] = {}
-_NOT_PORTED = ("sharded", "blocksparse")
+_NOT_PORTED = ("sharded",)
 
 
 def register_operator(name: str) -> Callable[[type], type]:
@@ -102,11 +112,21 @@ def register_operator(name: str) -> Callable[[type], type]:
     return deco
 
 
+def _ensure_lazy_registered() -> None:
+    if "blocksparse" not in _REGISTRY:
+        # repro_torch.sparse registers BlockSparseOperator on import
+        from repro_torch.sparse import blocksparse  # noqa: F401
+
+
 def operator_backends() -> tuple[str, ...]:
+    """Registered backend names (triggers the lazy registration)."""
+    _ensure_lazy_registered()
     return tuple(sorted(_REGISTRY))
 
 
 def _resolve_backend(name: str) -> type:
+    if name not in _REGISTRY:
+        _ensure_lazy_registered()
     if name in _NOT_PORTED:
         raise ValueError(
             f"operator backend {name!r} is not ported to repro_torch yet "
@@ -123,9 +143,8 @@ def make_operator(config: OperatorConfig, X, params, *,
                   device=None) -> "KernelOperator":
     """The single factory every consumer goes through. X and params move to
     `device` (None = the card; raises when there is none)."""
-    if config.geom is not None or config.plan is not None:
-        raise ValueError("mesh geometries and sparsity plans are not ported "
-                         "to repro_torch yet")
+    if config.geom is not None:
+        raise ValueError("mesh geometries are not ported to repro_torch yet")
     dev = resolve_device(device)
     cls = _resolve_backend(config.backend)
     X = torch.as_tensor(X, device=dev)
@@ -187,6 +206,10 @@ class KernelOperator:
     """Base class: binds (config, X, params); see the module docstring.
     Subclasses implement `matvec`."""
 
+    # the backend the MLL's Eq. 2 backward contracts through: the base-class
+    # blockwise partials serve every dense backend; blocksparse has its own
+    grad_backend = "partitioned"
+
     def __init__(self, config: OperatorConfig, X: torch.Tensor, params):
         self.config = config
         self.X = X
@@ -241,6 +264,31 @@ class KernelOperator:
 
     def noise(self) -> torch.Tensor:
         return noise_variance(self.params, self.config.noise_floor)
+
+    def quad_form_grads(self, A: torch.Tensor, V: torch.Tensor):
+        """(g_params, g_X) of q = sum_j a_j^T K_hat v_j, bounded memory: the
+        kernel part by `partitioned.quad_form_partials` (one slab and its
+        autograd residuals live at a time, half-size row blocks), the
+        sigma^2 sum(A o V) diagonal by autograd on the noise leaf."""
+        if A.ndim == 1:
+            A = A[:, None]
+        if V.ndim == 1:
+            V = V[:, None]
+        gp, g_rows, g_cols = partitioned.quad_form_partials(
+            self.config.kernel, self.X, self.X, A, V, self.params,
+            row_block=max(self.config.row_block // 2, 64))
+        return self._add_noise_grad(gp, A, V), g_rows + g_cols
+
+    def _add_noise_grad(self, gp, A, V):
+        """gp + d/dparams [sigma^2(params) sum(A o V)]."""
+        dot_av = torch.sum(A * V).detach()
+        leaves = [a.detach().requires_grad_(True) for a in params_leaves(self.params)]
+        with torch.enable_grad():  # also inside an autograd backward
+            s2 = noise_variance(params_unflatten(self.params, leaves),
+                                self.config.noise_floor) * dot_av
+            g = torch.autograd.grad(s2, leaves, allow_unused=True)
+        g = [torch.zeros_like(a) if gi is None else gi for a, gi in zip(leaves, g)]
+        return params_map2(torch.add, gp, params_unflatten(self.params, g))
 
     # -- solver hooks -------------------------------------------------------
 
@@ -384,3 +432,9 @@ class PallasFusedOperator(PartitionedOperator):
             dots = dots.clone()
             dots[0] += sigma2.to(dots.dtype) * dots[3]
         return out, dots
+
+
+def backward_backend_for(backend: str) -> str:
+    """The backend the MLL backward contracts Eq. 2 through (see
+    `KernelOperator.grad_backend`)."""
+    return _resolve_backend(backend).grad_backend

@@ -7,8 +7,9 @@ slab is live at a time by construction. The per-slab MVM can be routed to
 the fused CUDA kernel (`repro_torch.kernels.ops.pallas_block_fn`), which
 never builds the slab in device memory at all.
 
-Forward only: the bounded-memory backward (`quad_form_partials`) belongs to
-the training path.
+The training backward, `quad_form_partials`, keeps the same bound: torch
+autograd runs per row block, and one slab with its residuals is live at a
+time.
 """
 
 from __future__ import annotations
@@ -17,7 +18,12 @@ from typing import Callable
 
 import torch
 
-from .kernels_math import kernel_matrix, noise_variance
+from .kernels_math import (
+    kernel_matrix,
+    noise_variance,
+    params_leaves,
+    params_unflatten,
+)
 
 
 def pad_rows(A: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
@@ -92,3 +98,47 @@ def kmvm(
     if add_noise:
         out = out + noise_variance(params, noise_floor) * V
     return out[:, 0] if squeeze else out
+
+
+def block_quad_grads(kernel, params, leaves, Xb, Xc, Ab, Vc):
+    """Autograd of one block's sum(Ab o (K(Xb, Xc) @ Vc)) w.r.t. the params
+    leaves, Xb and Xc: (g_leaves, g_Xb, g_Xc). `leaves` are
+    `params_leaves(params)` detached with requires_grad. The block's graph
+    is freed before it returns."""
+    Xb = Xb.detach().requires_grad_(True)
+    Xc = Xc.detach().requires_grad_(True)
+    with torch.enable_grad():  # also inside an autograd backward
+        K = kernel_matrix(kernel, Xb, Xc, params_unflatten(params, leaves))
+        q = torch.sum(Ab * (K @ Vc))
+        g = torch.autograd.grad(q, leaves + [Xb, Xc], allow_unused=True)
+    g_leaves = [torch.zeros_like(a) if gi is None else gi
+                for a, gi in zip(leaves, g[:-2])]
+    return g_leaves, g[-2], g[-1]
+
+
+def quad_form_partials(kernel, X_rows, X_cols, A, V, params, *,
+                       row_block: int = 1024):
+    """Gradients of q = sum_j a_j^T K(X_rows, X_cols) v_j (no noise term)
+    w.r.t. (params, X_rows, X_cols): (g_params, g_rows, g_cols).
+
+    A row-block loop of torch autograd: each block builds its slab and
+    residuals once for all t column pairs (so callers batch columns rather
+    than call twice) and frees them before the next, so peak memory is
+    O(row_block * n).
+    """
+    if A.ndim == 1:
+        A = A[:, None]
+    if V.ndim == 1:
+        V = V[:, None]
+    leaves = [a.detach().requires_grad_(True) for a in params_leaves(params)]
+    g_acc = [torch.zeros_like(a) for a in leaves]
+    g_rows = torch.zeros_like(X_rows)
+    g_cols = torch.zeros_like(X_cols)
+    V = V.detach()
+    for i in range(0, X_rows.shape[0], row_block):
+        gl, g_rows[i:i + row_block], gc = block_quad_grads(
+            kernel, params, leaves, X_rows[i:i + row_block], X_cols,
+            A[i:i + row_block].detach(), V)
+        g_acc = [a + b for a, b in zip(g_acc, gl)]
+        g_cols += gc
+    return params_unflatten(params, g_acc), g_rows, g_cols

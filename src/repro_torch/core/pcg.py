@@ -15,8 +15,9 @@ and a masked column's state stays frozen. PyTorch runs the loop eagerly, so
 the loop stops once every column is masked (and `j >= min_iters`): from
 there on the reference's remaining iterations change nothing. That check
 costs a host sync, so it runs every `_CHECK_EVERY` iterations only.
-`alphas`/`betas`/`active` are padded to `max_iters` so results line up
-with the reference's.
+`alphas`/`betas`/`active` (and, with `track_residuals=True`, the
+per-iteration relative residuals) are padded to `max_iters` so results line
+up with the reference's.
 
 Operators that report `supports_fused_step` (the fused-kernel backend)
 supply `fused_matvec_dots`: the MVM and the iteration's reductions from ONE
@@ -34,9 +35,11 @@ _CHECK_EVERY = 8
 
 class SolveState(NamedTuple):
     """Warm-start state: the converged solution block of the last call (the
-    natural `x0` for the next call against a nearby K_hat)."""
+    natural `x0` for the next call against a nearby K_hat) and, filled in
+    by the MLL forward, the SLQ probe block that is reused with it."""
 
-    solutions: torch.Tensor            # (n, t)
+    solutions: torch.Tensor                 # (n, t)
+    probes: torch.Tensor | None = None      # (n, t - 1) reused SLQ probes
 
 
 class PCGResult(NamedTuple):
@@ -47,6 +50,9 @@ class PCGResult(NamedTuple):
     rz0: torch.Tensor          # (t,) r0^T P^{-1} r0
     rel_residual: torch.Tensor  # (t,) final ||r|| / ||b||
     iterations: torch.Tensor   # (t,) iterations applied per column
+    # (max_iters, t) per-iteration relative residuals with
+    # track_residuals=True, else None
+    residuals: torch.Tensor | None = None
 
     @property
     def state(self) -> SolveState:
@@ -69,6 +75,7 @@ def pcg(
     method: str = "standard",
     x0: torch.Tensor | None = None,
     fused: bool | None = None,
+    track_residuals: bool = False,
 ) -> PCGResult:
     """Solve K_hat U = B for all columns of B at once.
 
@@ -77,7 +84,8 @@ def pcg(
     v -> K_hat v. B: (n, t) or (n,); CG state lives in B.dtype. tol: the
     relative residual threshold ||r||/||b||. x0: an initial guess (one extra
     MVM forms r0 = B - K x0). fused: None = the fused step where supported,
-    True = on any operator, False = never.
+    True = on any operator, False = never. track_residuals: also return the
+    relative residual of every iteration (`PCGResult.residuals`).
     """
     fused_mvm = None
     if hasattr(A, "matvec"):
@@ -93,7 +101,8 @@ def pcg(
         res = pcg(A if fused_mvm is not None else mvm, B[:, None], precond_solve,
                   max_iters=max_iters, min_iters=min_iters, tol=tol,
                   allreduce=allreduce, method=method,
-                  x0=None if x0 is None else x0[:, None], fused=fused)
+                  x0=None if x0 is None else x0[:, None], fused=fused,
+                  track_residuals=track_residuals)
         return res._replace(solution=res.solution[:, 0])
 
     precond_solve = precond_solve or _identity
@@ -104,8 +113,9 @@ def pcg(
         loop = _pcg_pipelined
     else:
         raise ValueError(f"unknown PCG method {method!r}")
-    return loop(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
-                x0, fused_mvm)
+    res = loop(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
+               x0, fused_mvm)
+    return res if track_residuals else res._replace(residuals=None)
 
 
 def _safe_div(num, den):
@@ -134,13 +144,18 @@ def _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce):
     alphas = torch.zeros((max_iters, t), dtype=u.dtype, device=u.device)
     betas = torch.zeros_like(alphas)
     actives = torch.zeros((max_iters, t), dtype=torch.bool, device=u.device)
+    residuals = torch.zeros_like(alphas)
     if ys:
         k = len(ys)
         alphas[:k] = torch.stack([y[0] for y in ys])
         betas[:k] = torch.stack([y[1] for y in ys])
         actives[:k] = torch.stack([y[2] for y in ys])
+        residuals[:k] = torch.stack([y[3] for y in ys])
+        # a stopped loop's later iterations would have seen the frozen state
+        residuals[k:] = residuals[k - 1]
     rel = torch.sqrt(allreduce(torch.sum(r * r, 0)) / b_norm2)
-    return PCGResult(u, alphas, betas, actives, rz0, rel, actives.sum(0))
+    return PCGResult(u, alphas, betas, actives, rz0, rel, actives.sum(0),
+                     residuals)
 
 
 def _pcg_standard(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
@@ -174,7 +189,7 @@ def _pcg_standard(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
         p = torch.where(active, z_new + beta * p, p)
         z = torch.where(active, z_new, z)
         rz = torch.where(active, rz_new, rz)
-        ys.append((alpha, beta, active))
+        ys.append((alpha, beta, active, rel))
         if _all_frozen(j, min_iters, active):
             break
     return _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce)
@@ -230,7 +245,7 @@ def _pcg_pipelined(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
         gamma = torch.where(active, gamma_new, gamma)
         delta = torch.where(active, delta_new, delta)
         rr = torch.where(active, rr_new, rr)
-        ys.append((alpha, beta, active))
+        ys.append((alpha, beta, active, rel))
         if _all_frozen(j, min_iters, active):
             break
     return _finish(x, r, b_norm2, rz0, ys, max_iters, allreduce)

@@ -2,8 +2,9 @@
 
 A rank-k pivoted Cholesky factor L (n, k) of the noise-free kernel K gives
 P = L L^T + sigma^2 I, applied through the Woodbury identity; its
-log-determinant follows from the matrix determinant lemma. Computing L
-touches k kernel rows: O(n k) memory, O(n k^2 + n d k) time.
+log-determinant follows from the matrix determinant lemma, and P admits
+exact sampling (z = L e1 + sigma e2), which the SLQ probes need. Computing
+L touches k kernel rows: O(n k) memory, O(n k^2 + n d k) time.
 """
 
 from __future__ import annotations
@@ -63,6 +64,19 @@ class Preconditioner(NamedTuple):
         n, k = self.L.shape
         logdet_inner = 2.0 * torch.sum(torch.log(torch.diagonal(self.chol_inner)))
         return (n - k) * torch.log(self.sigma2) + logdet_inner
+
+    def sample(self, generator: torch.Generator | None, num: int,
+               dtype=None) -> torch.Tensor:
+        """(n, num) probes z ~ N(0, P), exactly: z = L e1 + sigma e2, with
+        e1 (k, num) and e2 (n, num) standard normal draws from `generator`
+        (on the factor's device). The reference draws the same distribution
+        from a jax key; the streams differ."""
+        dtype = dtype or self.L.dtype
+        n, k = self.L.shape
+        dev = self.L.device
+        e1 = torch.randn((k, num), generator=generator, dtype=dtype, device=dev)
+        e2 = torch.randn((n, num), generator=generator, dtype=dtype, device=dev)
+        return self.L.to(dtype) @ e1 + torch.sqrt(self.sigma2).to(dtype) * e2
 
 
 def make_preconditioner(

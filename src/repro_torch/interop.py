@@ -4,8 +4,11 @@
 NamedTuple tree of the reference whose leaves are numpy arrays (or anything
 `np.asarray` takes) and returns the port's NamedTuples of tensors on
 `device`. The classes are matched by name, so nothing of the reference is
-imported. Artifacts cover the rest of the serving state
-(`repro_torch.serve.load_artifact` reads the reference's files).
+imported; this covers every params tree the reference's trainer returns
+(`GPParams`, and `KernelParams` with its per-node `StationaryParams` /
+`RQParams` / `LinearParams` / `ScaleParams`). Artifacts cover the rest of
+the serving state (`repro_torch.serve.load_artifact` reads the
+reference's files).
 """
 
 from __future__ import annotations

@@ -7,10 +7,15 @@ interface:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so
 
 at first use, into `build/kernels/` at the root of the checkout (listed in
-`.gitignore`). The file name carries a hash of the source and the flags, so
-an edited source is rebuilt and never confused with a stale library. One
-nvcc process runs per source, all started together. A build that fails
-raises with the compiler's output; nothing falls back.
+`.gitignore`). The file name carries a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and
+never confused with a stale library. One nvcc process runs per source, all
+started together. A build that fails raises with the compiler's output;
+nothing falls back.
+
+`library()` loads every library that `build()` compiles and declares the C
+entry points of each source from `ENTRY_POINTS` (keyed by the source's
+stem); the returned object exposes all of them by name.
 """
 
 from __future__ import annotations
@@ -28,7 +33,24 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib: ctypes.CDLL | None = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# per source (csrc/<stem>.cu): its C entry points, (argtypes, restype)
+ENTRY_POINTS = {
+    "kmvm": {
+        "kmvm_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                      _P], _I),
+        "kmvm_dots_fwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                           _I, _I, _P], _I),
+        "kmvm_error_string": ([_I], ctypes.c_char_p),
+    },
+    "kmvm_sparse": {
+        "kmvm_bs_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _P], _I),
+        "kmvm_bs_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+_lib = None
 
 
 def _nvcc() -> str:
@@ -42,8 +64,14 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -51,7 +79,7 @@ def build(force: bool = False) -> dict:
     """Compile every source under csrc/ (in parallel). Returns
     {"seconds": wall time, "ptxas": the -Xptxas -v lines, "libs": paths}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = _sources()
     jobs = []
     t0 = time.perf_counter()
     for src in sources:
@@ -75,21 +103,32 @@ def build(force: bool = False) -> dict:
             "libs": [str(_target(s)) for s in sources]}
 
 
-def library() -> ctypes.CDLL:
-    """The kernels' library, built at first use; argtypes declared."""
+class _Kernels:
+    """The C entry points of every kernel library, as attributes."""
+
+    def __init__(self, fns: dict):
+        self.__dict__.update(fns)
+
+
+def library() -> _Kernels:
+    """Every kernel library, built at first use, with the argtypes of each
+    source's entry points declared; raises for a source without a
+    declaration or a declared entry point its library lacks."""
     global _lib
     if _lib is not None:
         return _lib
-    src = CSRC / "kmvm.cu"
-    if not _target(src).exists():
+    sources = _sources()
+    if any(not _target(src).exists() for src in sources):
         build()
-    lib = ctypes.CDLL(str(_target(src)))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.kmvm_fwd.argtypes = [I, P, P, P, P, P, I, P, I, I, I, I, I, I, P]
-    lib.kmvm_fwd.restype = I
-    lib.kmvm_dots_fwd.argtypes = [I, P, P, P, P, P, P, P, I, P, P, I, I, I, I, P]
-    lib.kmvm_dots_fwd.restype = I
-    lib.kmvm_error_string.argtypes = [I]
-    lib.kmvm_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    fns = {}
+    for src in sources:
+        if src.stem not in ENTRY_POINTS:
+            raise RuntimeError(f"no entry points declared for csrc/{src.name}")
+        lib = ctypes.CDLL(str(_target(src)))
+        for name, (argtypes, restype) in ENTRY_POINTS[src.stem].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            fns[name] = fn
+    _lib = _Kernels(fns)
+    return _lib

@@ -104,6 +104,43 @@ def verify(engine: PredictionEngine, Xq: torch.Tensor) -> float:
         float(torch.max(torch.abs(var - ref_v)) / torch.max(torch.abs(ref_v))))
 
 
+def serve_traffic(engine: PredictionEngine, pool: np.ndarray, *,
+                  requests: int, points_per_request: int, clients: int,
+                  max_batch: int = 128, max_wait_ms: float = 2.0,
+                  rng: np.random.Generator | None = None) -> dict:
+    """`requests` requests of `points_per_request` rows drawn from `pool`,
+    sent by `clients` threads through a MicroBatcher over `engine`: latency
+    p50/p99/max (ms), QPS, batches, requests per batch, padded rows."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    queries = [pool[rng.integers(0, pool.shape[0], size=points_per_request)]
+               for _ in range(requests)]
+    batcher = MicroBatcher(engine, BatcherConfig(
+        max_batch=max_batch, max_wait_ms=max_wait_ms,
+        bucket_sizes=(16, 64, max_batch)))
+
+    def client(q):
+        t0 = time.perf_counter()
+        mean, var = batcher.predict(q)
+        if not (np.isfinite(mean).all() and np.isfinite(var).all()):
+            raise RuntimeError("non-finite prediction")
+        return time.perf_counter() - t0
+
+    try:
+        with ThreadPoolExecutor(clients) as ex:
+            t0 = time.perf_counter()
+            lats = np.asarray(list(ex.map(client, queries)))
+            wall = time.perf_counter() - t0
+    finally:
+        batcher.close()
+    return dict(
+        requests=requests, points_per_request=points_per_request,
+        clients=clients, p50_ms=float(np.percentile(lats, 50) * 1e3),
+        p99_ms=float(np.percentile(lats, 99) * 1e3),
+        max_ms=float(lats.max() * 1e3), qps=requests / wall,
+        batches=batcher.batches_run, rows_padded=batcher.rows_padded,
+        req_per_batch=batcher.requests_served / max(batcher.batches_run, 1))
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="pallas",
@@ -155,42 +192,19 @@ def main(argv=None) -> dict:
         raise SystemExit(f"verification FAILED: rel err {rel:.2e} > 1e-5")
 
     ppr = args.points_per_request
-    queries = [pool[rng.integers(0, pool.shape[0], size=ppr)]
-               for _ in range(args.requests)]
-    batcher = MicroBatcher(engine, BatcherConfig(
-        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        bucket_sizes=(16, 64, args.max_batch)))
-
-    def client(q):
-        t0 = time.perf_counter()
-        mean, var = batcher.predict(q)
-        if not (np.isfinite(mean).all() and np.isfinite(var).all()):
-            raise RuntimeError("non-finite prediction")
-        return time.perf_counter() - t0
-
-    try:
-        with ThreadPoolExecutor(args.clients) as ex:
-            t0 = time.perf_counter()
-            lats = np.asarray(list(ex.map(client, queries)))
-            wall = time.perf_counter() - t0
-    finally:
-        batcher.close()
-    report.update(
-        n=art.n, d=int(art.X.shape[1]), verify_rel_err=rel,
-        requests=args.requests, points_per_request=ppr, clients=args.clients,
-        p50_ms=float(np.percentile(lats, 50) * 1e3),
-        p99_ms=float(np.percentile(lats, 99) * 1e3),
-        max_ms=float(lats.max() * 1e3), qps=args.requests / wall,
-        batches=batcher.batches_run, rows_padded=batcher.rows_padded,
-        launches=dict(launch_counts))
+    traffic = serve_traffic(engine, pool, requests=args.requests,
+                            points_per_request=ppr, clients=args.clients,
+                            max_batch=args.max_batch,
+                            max_wait_ms=args.max_wait_ms, rng=rng)
+    report.update(n=art.n, d=int(art.X.shape[1]), verify_rel_err=rel,
+                  **traffic, launches=dict(launch_counts))
     print(f"[serve-gp] {args.requests} requests x {ppr} pts ({args.clients} "
           f"clients, backend={args.backend}, chunk={args.chunk}): "
           f"p50={report['p50_ms']:.1f} ms p99={report['p99_ms']:.1f} ms "
           f"max={report['max_ms']:.1f} ms qps={report['qps']:.1f}")
-    print(f"[serve-gp] {batcher.batches_run} device batches, "
-          f"{batcher.requests_served / max(batcher.batches_run, 1):.1f} "
-          f"req/batch, {batcher.rows_padded} padded rows; kernel launches "
-          f"{dict(launch_counts)}")
+    print(f"[serve-gp] {report['batches']} device batches, "
+          f"{report['req_per_batch']:.1f} req/batch, {report['rows_padded']} "
+          f"padded rows; kernel launches {dict(launch_counts)}")
     return report
 
 

@@ -9,7 +9,11 @@ configuration — as one versioned, CRC-checked artifact on the
 
 The format is the reference's version 3, byte for byte in its keys and
 manifest: an artifact written by either package loads in the other, and
-`artifact_digest` gives both the same content digest.
+`artifact_digest` gives both the same content digest. A blocksparse
+artifact records its sparsity plan in `meta["sparse_plan"]` (tile, margin,
+fill, support, pairs, digest); the plan is a pure function of (kernel, X,
+params), so load rebuilds it and checks the digest (plans and digests are
+the same in both packages).
 """
 
 from __future__ import annotations
@@ -120,12 +124,13 @@ def _arrays_tree(artifact: PosteriorArtifact) -> dict:
     }
 
 
-def _config_dict(config: OperatorConfig) -> dict:
+def _config_dict(config: OperatorConfig) -> tuple[dict, object]:
+    """(the config as the manifest holds it, without geom and plan; the
+    plan)."""
     cfg = config._asdict()
-    if cfg.pop("geom") is not None or cfg.pop("plan") is not None:
-        raise ValueError("mesh geometries and sparsity plans are not ported "
-                         "to repro_torch yet")
-    return cfg
+    if cfg.pop("geom") is not None:
+        raise ValueError("mesh geometries are not ported to repro_torch yet")
+    return cfg, cfg.pop("plan")
 
 
 def artifact_digest(artifact: PosteriorArtifact) -> str:
@@ -138,7 +143,9 @@ def artifact_digest(artifact: PosteriorArtifact) -> str:
         h.update(path.encode())
         h.update(f"{a.shape}:{a.dtype}".encode())
         h.update(zlib.crc32(a.tobytes()).to_bytes(4, "little"))
-    cfg = _config_dict(artifact.config)
+    cfg, plan = _config_dict(artifact.config)
+    if plan is not None:
+        cfg["plan_digest"] = plan.digest
     if not isinstance(cfg["kernel"], str):
         cfg["kernel"] = spec_to_json(cfg["kernel"])
     h.update(json.dumps(cfg, sort_keys=True, default=str).encode())
@@ -149,7 +156,14 @@ def save_artifact(directory: str, artifact: PosteriorArtifact) -> str:
     """Atomically persist the artifact; returns the snapshot path."""
     meta = dict(artifact.meta)
     meta["artifact_version"] = ARTIFACT_VERSION
-    cfg = _config_dict(artifact.config)
+    cfg, plan = _config_dict(artifact.config)
+    if plan is not None:
+        meta["sparse_plan"] = {
+            "tile": plan.tile, "margin": plan.margin,
+            "assume_sorted": bool((plan.perm[:-1] <= plan.perm[1:]).all()),
+            "fill": plan.fill, "support": plan.support,
+            "num_pairs": plan.num_pairs, "digest": plan.digest,
+        }
     if not isinstance(cfg["kernel"], str):
         cfg["kernel"] = {"__kernel_spec__": spec_to_json(cfg["kernel"])}
     meta["operator_config"] = cfg
@@ -172,11 +186,6 @@ def load_artifact(directory: str, *, device=None) -> PosteriorArtifact:
         raise ValueError(
             f"artifact version {version!r} under {directory} not supported "
             f"(this build reads version {ARTIFACT_VERSION}; re-run the fit)")
-    if meta.get("sparse_plan") is not None:
-        raise ValueError(
-            f"artifact under {directory} carries a sparsity plan: the "
-            f"blocksparse backend is not ported to repro_torch yet")
-
     zero = np.zeros(())
     if meta.get("params_format") == "kernel_params":
         params_tmpl = params_skeleton(spec_from_json(meta["kernel_spec"]))
@@ -197,6 +206,19 @@ def load_artifact(directory: str, *, device=None) -> PosteriorArtifact:
     cfg["plan"] = None
     if isinstance(cfg["kernel"], dict):
         cfg["kernel"] = spec_from_json(cfg["kernel"]["__kernel_spec__"])
+    if meta.get("sparse_plan") is not None:
+        from repro_torch.sparse import build_plan
+
+        sp = meta["sparse_plan"]
+        plan = build_plan(cfg["kernel"], tree["X"], tree["params"],
+                          tile=int(sp["tile"]), margin=float(sp["margin"]),
+                          assume_sorted=bool(sp.get("assume_sorted", False)))
+        if plan.digest != sp["digest"]:
+            raise ValueError(
+                f"sparsity plan rebuilt from {directory} does not match the "
+                f"manifest digest ({plan.digest[:12]} != {sp['digest'][:12]}):"
+                f" artifact arrays and manifest disagree")
+        cfg["plan"] = plan
     return PosteriorArtifact(
         config=OperatorConfig(**cfg), params=tree["params"], X=tree["X"],
         y=tree["y"], mean_cache=tree["mean_cache"], var_Q=tree["var_Q"],

@@ -6,7 +6,10 @@ set: every launch sees the same (chunk_size, d) shape
 (`partitioned.map_row_chunks` pads the tail chunk), and one chunk's
 (chunk, r) cross-products are live at a time, so large test batches stream
 against large training sets. `compute_dtype="bfloat16"` re-binds the
-operator with bf16 cross-MVMs; cache state stays fp32.
+operator with bf16 cross-MVMs; cache state stays fp32. On a compactly
+supported blocksparse operator each request batch is Morton-sorted before
+chunking (`sort_queries`), so chunks are spatially local and the
+operator's runtime tile pruning bites; results return in request order.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from repro_torch.core.operators import make_operator
 from repro_torch.core.partitioned import map_row_chunks
 from repro_torch.core.predcache import predict_mean, predict_var_cached
+from repro_torch.sparse.plan import morton_order
 
 from .artifact import PosteriorArtifact
 
@@ -31,7 +35,8 @@ class PredictionEngine:
     override of the operator's matmul dtype (default: the artifact's).
     chunk_size: rows per launch. include_noise: add sigma^2 to variances.
     device: where the engine computes (None = the card; raises when there
-    is none).
+    is none). sort_queries: Morton-sort each batch before chunking (None =
+    on for a compactly supported blocksparse plan, off otherwise).
     """
 
     def __init__(self, artifact: PosteriorArtifact, *,
@@ -39,6 +44,7 @@ class PredictionEngine:
                  compute_dtype: str | None = _KEEP,
                  chunk_size: int = 1024,
                  include_noise: bool = True,
+                 sort_queries: bool | None = None,
                  device=None):
         config = artifact.config
         if backend is not None:
@@ -57,6 +63,10 @@ class PredictionEngine:
             var_T_chol=artifact.var_T_chol.to(dev),
             solve_rel_residual=artifact.solve_rel_residual.to(dev))
         self._cache = self.artifact.cache()
+        if sort_queries is None:
+            plan = getattr(self.op, "plan", None)
+            sort_queries = plan is not None and plan.compact
+        self.sort_queries = bool(sort_queries)
         # counters; several batcher threads may drive one engine
         self.chunks_run = 0
         self.rows_served = 0
@@ -82,7 +92,18 @@ class PredictionEngine:
         if Xstar.ndim == 1:
             Xstar = Xstar[None, :]
         m = Xstar.shape[0]
+        inv = None
+        if self.sort_queries and m > 1:
+            # the order comes from the host (a few query rows); the inverse
+            # permutation is a scatter on the device
+            order = torch.as_tensor(morton_order(Xstar.cpu().numpy()),
+                                    device=Xstar.device).long()
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(m, device=Xstar.device)
+            Xstar = Xstar[order]
         out = map_row_chunks(self._predict_chunk, Xstar, self.chunk_size)
+        if inv is not None:
+            out = tuple(a[inv] for a in out)
         with self._counter_lock:
             self.chunks_run += -(-max(m, 1) // self.chunk_size)
             self.rows_served += m

@@ -1,0 +1,301 @@
+"""`blocksparse` — the distance-pruned KernelOperator backend.
+
+The counterpart of `repro.sparse.blocksparse`, registered lazily in the
+operator registry. The operator executes a `SparsePlan`:
+
+  * `matvec` permutes V into the plan's Morton order, runs only the active
+    tile pairs and permutes back, so it is externally identical to the
+    dense backends. When the whole spec is one fused pass
+    (`kernels.ops.fused_pass_or_none`, the reference's rule), the pairs run
+    in ONE launch of the block-sparse CUDA kernel (`kmvm_blocksparse`; its
+    plain version on a CPU tensor), fp32-accumulated bf16 tiles under
+    `compute_dtype="bfloat16"`. Other specs (ARD lengthscales, `linear`
+    factors) take the masked path, `masked_kmvm`, on any device, as they
+    do on the TPU.
+  * `quad_form_grads`, the Eq. 2 backward surface, walks the same row
+    structure with torch autograd, one gathered slab and its residuals at
+    a time (`sparse_quad_form_partials`). Pruned tiles contribute exactly
+    zero gradient (the Wendland taper is zero, with zero slope, beyond its
+    support).
+  * `cross_matvec` prunes at predict time with a runtime test: the query
+    chunk's bounding box against every tile's box at the CURRENT support
+    radius, computed on the device. The active X tiles form one column list
+    shared by every 64-row tile of the chunk, and the whole chunk is one
+    launch of the same block-sparse kernel (no loop over tiles), with the
+    list cut into fixed segments so that a short chunk still fills the
+    card. Its rows sum their column tiles in ascending order and a tile of
+    zeros adds exactly nothing, so a query's result is the same bits
+    whatever chunk it is served in (the engine's sorted, chunked
+    predictions equal the unchunked ones).
+
+When `OperatorConfig.plan` is None the operator builds one at construction
+and records it on its config, so posterior artifacts capture the plan the
+operator executed.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.kernels_math import (
+    kernel_matrix,
+    params_leaves,
+    params_unflatten,
+)
+from repro_torch.core.operators import (
+    KernelOperator,
+    OperatorConfig,
+    _compute_dtype_of,
+    mixed_block_fn,
+    register_operator,
+)
+from repro_torch.core.partitioned import block_quad_grads
+from repro_torch.kernels.ops import (
+    _pass_scalar_vector,
+    _prescale,
+    _scale_rhs,
+    fused_pass_or_none,
+)
+
+from .kmvm_sparse import kmvm_blocksparse, tile_rows
+from .plan import SparsePlan, build_plan, spec_support_radius
+
+_QUERY_TILE = 64     # rows per tile of a query chunk in `cross_matvec`
+_SEGMENT_TILES = 32  # plan tiles per column segment of `cross_matvec`
+
+
+def _inner_block_fn(kernel, compute_dtype) -> Callable:
+    """Per-slab K(Xb, Xc) @ Vc: the mixed evaluator when a compute dtype is
+    set, the exact dense slab otherwise."""
+    if compute_dtype is not None:
+        return mixed_block_fn(kernel, compute_dtype)
+
+    def exact(Xb, Xc, Vc, params):
+        return kernel_matrix(kernel, Xb, Xc, params) @ Vc
+
+    return exact
+
+
+def _row_columns(plan: SparsePlan, cols: torch.Tensor, r: int) -> torch.Tensor:
+    """Sorted point indices of row tile r's active column tiles."""
+    return tile_rows(cols[int(plan.row_ptr[r]):int(plan.row_ptr[r + 1])],
+                     plan.tile, plan.n)
+
+
+def masked_kmvm(kernel, Xs, Vs, params, plan: SparsePlan, *,
+                compute_dtype=None) -> torch.Tensor:
+    """K_sorted @ V_sorted over active tiles only, for specs the fused pass
+    cannot express: one gathered (tile, active columns) slab per row tile,
+    so the work is the pair count and one slab is live at a time."""
+    inner = _inner_block_fn(kernel, compute_dtype)
+    cols = torch.as_tensor(plan.pair_cols, device=Xs.device)
+    out = torch.empty_like(Vs)
+    for r in range(plan.num_tiles):
+        i0, i1 = r * plan.tile, min((r + 1) * plan.tile, plan.n)
+        idx = _row_columns(plan, cols, r)
+        out[i0:i1] = inner(Xs[i0:i1], Xs[idx], Vs[idx], params).to(Vs.dtype)
+    return out
+
+
+def fused_operands(ppass, Xs, Vs, compute_dtype=None):
+    """(Xp, Vp, scalars): the block-sparse kernel's operands for one fused
+    pass — inputs pre-scaled by the pass's lengthscale, the RHS by its base
+    weight, both in the compute dtype (fp32 unless bf16 is asked for)."""
+    cdt = torch.float32 if compute_dtype is None else compute_dtype
+    return (_prescale(ppass, Xs, cdt), _scale_rhs(ppass, Vs, cdt),
+            _pass_scalar_vector(ppass, Xs.device))
+
+
+def sorted_fused_kmvm(ppass, Xs, Vs, row_ptr, cols, *, tile: int,
+                      compute_dtype=None) -> torch.Tensor:
+    """One fused pass over the active pairs on pre-sorted operands (the
+    counterpart of `pallas_sorted_kmvm`): (n, t) fp32."""
+    Xp, Vp, scalars = fused_operands(ppass, Xs, Vs, compute_dtype)
+    return kmvm_blocksparse(ppass.components, Xp, Xp, Vp, scalars, row_ptr,
+                            cols, tile=tile)
+
+
+def sparse_quad_form_partials(kernel, Xs, A, V, params, plan: SparsePlan):
+    """Gradients of q = sum_j a_j^T K_sorted v_j over ACTIVE tiles only:
+    (g_params, g_X_sorted). Per row tile, torch autograd of one gathered
+    slab (freed before the next); column gradients are scattered back to
+    the gathered rows."""
+    leaves = [a.detach().requires_grad_(True) for a in params_leaves(params)]
+    g_acc = [torch.zeros_like(a) for a in leaves]
+    gX = torch.zeros_like(Xs)
+    cols = torch.as_tensor(plan.pair_cols, device=Xs.device)
+    A, V = A.detach(), V.detach()
+    for r in range(plan.num_tiles):
+        i0, i1 = r * plan.tile, min((r + 1) * plan.tile, plan.n)
+        idx = _row_columns(plan, cols, r)
+        gl, gxb, gxc = block_quad_grads(kernel, params, leaves, Xs[i0:i1],
+                                        Xs[idx], A[i0:i1], V[idx])
+        g_acc = [a + b for a, b in zip(g_acc, gl)]
+        gX.index_add_(0, idx, gxc)
+        gX[i0:i1] += gxb
+    return params_unflatten(params, g_acc), gX
+
+
+@register_operator("blocksparse")
+class BlockSparseOperator(KernelOperator):
+    """Distance-pruned MVMs for compactly-supported kernel specs.
+
+    Non-compact specs plan to the all-active mask — every tile pair runs
+    and results match the other backends — so the backend is safe to
+    select for any spec and pays off once a Wendland taper enters it.
+    """
+
+    grad_backend = "blocksparse"
+
+    def __init__(self, config: OperatorConfig, X: torch.Tensor, params):
+        plan = config.plan
+        if plan is None:
+            plan = build_plan(config.kernel, X, params,
+                              tile=max(8, min(config.row_block, 256)))
+            config = config._replace(plan=plan)
+        super().__init__(config, X, params)
+        if not isinstance(plan, SparsePlan):
+            raise TypeError(f"OperatorConfig.plan must be a SparsePlan, "
+                            f"got {type(plan)}")
+        if plan.n != X.shape[0]:
+            raise ValueError(
+                f"plan covers n={plan.n} rows but X has {X.shape[0]}")
+        self.plan = plan
+        dev = X.device
+        self._perm = torch.as_tensor(plan.perm, device=dev).long()
+        self._inv_perm = torch.as_tensor(plan.inv_perm, device=dev).long()
+        self._row_ptr = torch.as_tensor(plan.row_ptr, device=dev)
+        self._cols = torch.as_tensor(plan.pair_cols, device=dev)
+        self._Xs = X[self._perm]
+
+    @classmethod
+    def slab_block_fn(cls, config: OperatorConfig, operand_dtype):
+        raise ValueError("'blocksparse' cannot be a per-slab inner backend")
+
+    # -- the pruned MVM -----------------------------------------------------
+
+    def _sorted_kmvm(self, Vs: torch.Tensor) -> torch.Tensor:
+        cdt = _compute_dtype_of(self.config, self.dtype)
+        ppass = fused_pass_or_none(self.config.kernel, self.params)
+        if ppass is not None:
+            out = sorted_fused_kmvm(ppass, self._Xs, Vs, self._row_ptr,
+                                    self._cols, tile=self.plan.tile,
+                                    compute_dtype=cdt)
+            return out.to(Vs.dtype)
+        return masked_kmvm(self.config.kernel, self._Xs, Vs, self.params,
+                           self.plan, compute_dtype=cdt)
+
+    def matvec(self, V: torch.Tensor) -> torch.Tensor:
+        squeeze = V.ndim == 1
+        if squeeze:
+            V = V[:, None]
+        out = self._sorted_kmvm(V[self._perm])[self._inv_perm]
+        out = self._add_noise(out, V)
+        return out[:, 0] if squeeze else out
+
+    # -- prediction-time pruning --------------------------------------------
+
+    def cross_matvec(self, Z: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+        """K(Z, X) @ V over the X tiles within the CURRENT support radius of
+        the query chunk's bounding box (exact for any radius; the serving
+        engine Morton-sorts queries so that chunks are spatially local)."""
+        squeeze = V.ndim == 1
+        if squeeze:
+            V = V[:, None]
+        plan = self.plan
+        tiles = self._active_tiles(Z)
+        m = Z.shape[0]
+        if tiles.numel() == 0 or m == 0:
+            out = torch.zeros((m, V.shape[1]), dtype=V.dtype, device=V.device)
+            return out[:, 0] if squeeze else out
+        cdt = _compute_dtype_of(self.config, self.dtype)
+        ppass = fused_pass_or_none(self.config.kernel, self.params)
+        Vs = V[self._perm]
+        if ppass is not None:
+            out = self._cross_fused(ppass, Z, Vs, tiles.cpu().numpy(), cdt)
+        else:
+            idx = tile_rows(tiles, plan.tile, plan.n)
+            out = _inner_block_fn(self.config.kernel, cdt)(
+                Z, self._Xs[idx], Vs[idx], self.params)
+        out = out.to(V.dtype)
+        return out[:, 0] if squeeze else out
+
+    def _active_tiles(self, Z: torch.Tensor) -> torch.Tensor:
+        """int32 indices of the plan tiles within the current support
+        radius of the bounding box of Z (every tile when not compact)."""
+        plan = self.plan
+        if not plan.compact:
+            return torch.arange(plan.num_tiles, dtype=torch.int32,
+                                device=Z.device)
+        support = spec_support_radius(self.config.kernel, self.params)
+        lo = torch.as_tensor(plan.box_lo, device=Z.device).to(Z.dtype)
+        hi = torch.as_tensor(plan.box_hi, device=Z.device).to(Z.dtype)
+        gap = torch.clamp(lo - torch.max(Z, 0).values, min=0.0)
+        gap = torch.maximum(gap, torch.clamp(torch.min(Z, 0).values - hi,
+                                             min=0.0))
+        active = torch.sum(gap * gap, 1) < support * support
+        return torch.nonzero(active)[:, 0].to(torch.int32)
+
+    def cross_launch_operands(self, Z: torch.Tensor, V: torch.Tensor):
+        """(args, kwargs) of the one `kmvm_blocksparse` launch that
+        `cross_matvec(Z, V)` makes, for a spec that is one fused pass and a
+        chunk with at least one active tile: what a check of the launch
+        against `kmvm_blocksparse_plain` at the serving shape needs."""
+        if V.ndim == 1:
+            V = V[:, None]
+        ppass = fused_pass_or_none(self.config.kernel, self.params)
+        tiles = self._active_tiles(Z).cpu().numpy()
+        return self._cross_operands(ppass, Z, V[self._perm], tiles,
+                                    _compute_dtype_of(self.config, self.dtype))
+
+    def _cross_operands(self, ppass, Z, Vs, tiles: np.ndarray, cdt):
+        """Every 64-row query tile against the active column tiles, the
+        list cut into segments of _SEGMENT_TILES consecutive plan tiles
+        (boundaries fixed in the plan's tile order, so they do not depend
+        on the chunk); each segment is a separate copy of the query rows in
+        the launch, so a short chunk still fills the card."""
+        m = Z.shape[0]
+        q = -(-m // _QUERY_TILE)
+        seg_of = tiles // _SEGMENT_TILES
+        segs, starts = np.unique(seg_of, return_index=True)
+        bounds = np.append(starts, tiles.shape[0])
+        cols = np.concatenate([np.tile(tiles[a:b], q)
+                               for a, b in zip(bounds[:-1], bounds[1:])])
+        row_ptr = np.concatenate([[0], np.cumsum(np.repeat(np.diff(bounds), q))])
+        dev = Z.device
+        Xp, Vp, scalars = fused_operands(ppass, self._Xs, Vs, cdt)
+        Zp = _prescale(ppass, Z, Xp.dtype)
+        if m % _QUERY_TILE:  # each segment's copy starts on a tile boundary
+            Zp = torch.cat([Zp, Zp.new_zeros((q * _QUERY_TILE - m, Zp.shape[1]))])
+        return ((ppass.components, Zp.repeat(len(segs), 1), Xp, Vp, scalars,
+                 torch.as_tensor(row_ptr, dtype=torch.int32, device=dev),
+                 torch.as_tensor(cols, dtype=torch.int32, device=dev)),
+                {"tile": self.plan.tile, "row_tile": _QUERY_TILE})
+
+    def _cross_fused(self, ppass, Z, Vs, tiles: np.ndarray, cdt):
+        """One block-sparse launch for a query chunk (`_cross_operands`);
+        the per-segment partials are summed in segment order. A segment
+        whose tiles all contribute zero for a row adds exactly zero, so a
+        row's bits do not depend on the chunk it is served in."""
+        args, kwargs = self._cross_operands(ppass, Z, Vs, tiles, cdt)
+        m, nseg = Z.shape[0], len(np.unique(tiles // _SEGMENT_TILES))
+        part = kmvm_blocksparse(*args, **kwargs).view(nseg, -1, Vs.shape[1])
+        out = part[0]
+        for s in range(1, nseg):  # in segment order, for any chunk
+            out = out + part[s]
+        return out[:m]
+
+    # -- Eq. 2 backward surface ---------------------------------------------
+
+    def quad_form_grads(self, A: torch.Tensor, V: torch.Tensor):
+        if A.ndim == 1:
+            A = A[:, None]
+        if V.ndim == 1:
+            V = V[:, None]
+        gp, gXs = sparse_quad_form_partials(
+            self.config.kernel, self._Xs, A[self._perm], V[self._perm],
+            self.params, self.plan)
+        return self._add_noise_grad(gp, A, V), gXs[self._inv_perm]

@@ -1,2 +1,2 @@
-"""repro_torch.train — the checkpoint layout (training itself is not
-ported yet)."""
+"""repro_torch.train — the checkpoint layout, the warm-started solve engine
+(`solver_state`) and exact-GP hyperparameter training (`gp_trainer`)."""

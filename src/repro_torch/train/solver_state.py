@@ -1,0 +1,183 @@
+"""Warm-started training engine: solver state amortized across optimizer steps.
+
+The counterpart of `repro.train.solver_state` (single device). Successive
+optimizer steps solve nearly identical systems, so the engine carries:
+
+  * the previous step's converged solutions, which seed mBCG (`x0`);
+  * the SLQ probe block, drawn once per refresh and reused, so the probe
+    solutions stay valid initial guesses;
+  * the preconditioner, reused until the `refresh_every` schedule or the
+    relative hyperparameter drift (`param_drift`) forces a rebuild.
+
+CG is exact under any fixed SPD preconditioner and any x0, and the Eq. 2
+gradient contracts converged solves, so warm steps change iteration counts,
+not the estimator. Warm probe iterates do not re-estimate the SLQ
+log-determinant, so warm steps carry the estimate of the last refresh (the
+reported loss value is O(drift)-stale between refreshes; the gradients are
+current). The sharded engine's `DistWarmStartEngine` belongs to the
+distributed slice.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.mll import (
+    MLLConfig,
+    operator_mll_backward,
+    operator_mll_forward,
+)
+from repro_torch.core.operators import make_operator
+from repro_torch.core.pcg import SolveState
+
+
+class WarmStartConfig(NamedTuple):
+    """Refresh schedule of the stateful solve engine (the reference's).
+
+    enabled:         False = every step is cold.
+    refresh_every:   rebuild the preconditioner + redraw the probes every k
+                     steps.
+    drift_threshold: max relative change of the constrained hyperparameters
+                     since the last refresh before a refresh is forced.
+    warm_min_iters:  min CG iterations on warm steps.
+    """
+
+    enabled: bool = True
+    refresh_every: int = 5
+    drift_threshold: float = 0.1
+    warm_min_iters: int = 1
+
+
+class SolverState(NamedTuple):
+    """Engine state threaded between steps."""
+
+    solve: SolveState     # solutions (n, 1+t) + probes (n, t)
+    precond: Any          # Preconditioner (reused until refresh)
+    logdet: torch.Tensor  # SLQ logdet at the last refresh
+
+
+def _leaf_paths(params, prefix=""):
+    """(field path, leaf) pairs of a params NamedTuple tree, in order."""
+    if isinstance(params, tuple):
+        names = getattr(params, "_fields", None) or range(len(params))
+        for name, p in zip(names, params):
+            yield from _leaf_paths(p, f"{prefix}.{name}")
+    else:
+        yield prefix, params
+
+
+def _softplus_np(x):
+    x = np.asarray(x, np.float64)
+    return np.log1p(np.exp(-np.abs(x))) + np.maximum(x, 0.0)
+
+
+def _constrained_leaves(params) -> list:
+    """Host-side softplus of every raw leaf that shapes K_hat (all but the
+    constant mean), in float64."""
+    out = []
+    for path, leaf in _leaf_paths(params):
+        if path.endswith("raw_mean"):
+            continue
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        out.append(_softplus_np(leaf))
+    return out
+
+
+def param_drift(ref, params) -> float:
+    """Max relative change of the constrained hyperparameters (the mean
+    excluded) between two params trees — the reference's measure."""
+    drift = 0.0
+    for a, b in zip(_constrained_leaves(ref), _constrained_leaves(params)):
+        denom = np.maximum(np.abs(a), 1e-8)
+        drift = max(drift, float(np.max(np.abs(b - a) / denom)))
+    return drift
+
+
+class WarmStartEngine:
+    """Stateful MLL value + gradient engine on one device.
+
+    step() returns (loss, aux, g_params) with loss = -mll/n, the gradients
+    assembled by `operator_mll_backward`, and appends a telemetry record
+    (mode "cold" | "refresh" | "warm", refreshed, cg_iters, iters_per_rhs,
+    drift, seconds) to `telemetry`. A disabled engine runs every step cold.
+    """
+
+    def __init__(self, cfg: MLLConfig, warm: WarmStartConfig | None = None):
+        self.cfg = cfg
+        self.warm = warm or WarmStartConfig()
+        self.state: SolverState | None = None
+        self.telemetry: list[dict] = []
+        self._params_ref = None
+        self._steps_since_refresh = 0
+
+    def _mode(self, params) -> tuple[str, float]:
+        if self.state is None or not self.warm.enabled:
+            return "cold", 0.0
+        drift = param_drift(self._params_ref, params)
+        if drift > self.warm.drift_threshold:
+            return "refresh", drift
+        if self._steps_since_refresh >= self.warm.refresh_every:
+            return "refresh", drift
+        return "warm", drift
+
+    def _run(self, mode, X, y, params, generator, probes=None):
+        cfg = self.cfg
+        op = make_operator(cfg.operator_config(), X, params, device=X.device)
+        n = X.shape[0]
+        state = self.state
+        if mode == "warm":
+            precond = op.preconditioner(cfg.precond_rank, reuse=state.precond)
+            probes, x0 = state.solve.probes, state.solve.solutions
+            logdet_carry = state.logdet
+            min_iters = self.warm.warm_min_iters
+        else:
+            precond = op.preconditioner(cfg.precond_rank)
+            logdet_carry = None
+            min_iters = cfg.min_cg_iters
+            if mode == "refresh":
+                # fresh probes invalidate the probe solutions; the y column
+                # still warm-starts
+                x0 = torch.cat([state.solve.solutions[:, :1],
+                                torch.zeros((n, cfg.num_probes), dtype=y.dtype,
+                                            device=y.device)], dim=1)
+            else:
+                x0 = None
+        (value, aux), (_, u_y, U, pinv_z), solve = operator_mll_forward(
+            op, y, generator, precond_rank=cfg.precond_rank,
+            num_probes=cfg.num_probes, max_cg_iters=cfg.max_cg_iters,
+            min_cg_iters=min_iters, cg_tol=cfg.cg_tol,
+            pcg_method=cfg.pcg_method, precond=precond, probes=probes, x0=x0,
+            logdet_carry=logdet_carry)
+        _, _, g_params = operator_mll_backward(
+            cfg, X, op.params, u_y, U, pinv_z, -1.0 / n)
+        new_state = SolverState(solve=solve, precond=precond,
+                                logdet=aux.logdet)
+        return -value / n, aux, g_params, new_state
+
+    def step(self, X, y, params, generator: torch.Generator | None = None, *,
+             probes: torch.Tensor | None = None):
+        """One MLL evaluation: (loss, MLLAux, g_params). `probes` injects
+        the probe block of a cold or refresh step (else it is drawn from
+        `generator`); warm steps reuse the carried block."""
+        t0 = time.perf_counter()
+        mode, drift = self._mode(params)
+        loss, aux, g_params, state = self._run(
+            mode, X, y, params, generator,
+            probes=None if mode == "warm" else probes)
+        iters = aux.cg_iterations.cpu().numpy()
+        if self.warm.enabled:
+            self.state = state
+            if mode != "warm":
+                self._params_ref = params
+                self._steps_since_refresh = 0
+            self._steps_since_refresh += 1
+        self.telemetry.append({
+            "mode": mode, "refreshed": mode != "warm",
+            "cg_iters": int(iters.sum()), "iters_per_rhs": iters.tolist(),
+            "drift": float(drift), "seconds": time.perf_counter() - t0})
+        return loss, aux, g_params

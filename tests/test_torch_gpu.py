@@ -166,3 +166,211 @@ def test_serving_path_on_card_matches_cpu(cuda):
     assert c1["kmvm"] > 0 and c1["kmvm_dots"] > 0
     assert _rel_err(m1, m0) <= 1e-3
     assert _rel_err(v1, v0_) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# B4: the block-sparse kernel (repro_torch.sparse.kmvm_sparse)
+# ---------------------------------------------------------------------------
+
+# spec -> constrained support radius (None: not compact, all-active plan)
+B4_SPECS = {"matern32 * wendland2": 0.15, "wendland4": 0.2,
+            "rbf * wendland2 + matern32 * wendland4": 0.15, "matern32": None}
+B4_TILES = ((8, 517), (32, 1000), (64, 2093), (256, 5001))  # (tile, ragged n)
+
+
+def _b4_problem(expr, radius, n, tile, t, dtype, device, seed=0):
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.kernels.ops import fused_pass_or_none
+    from repro_torch.sparse import build_plan
+    from repro_torch.sparse.blocksparse import fused_operands
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, 2)).astype(np.float32)
+    params = init_kernel_params(expr, lengthscale=0.2, radius=radius,
+                                noise=0.3, device=device)
+    plan = build_plan(expr, X, params, tile=tile)
+    ppass = fused_pass_or_none(expr, params)
+    Xs = torch.as_tensor(X[plan.perm], device=device)
+    V = torch.as_tensor(rng.standard_normal((n, t)), dtype=torch.float32,
+                        device=device)
+    Xp, Vp, scalars = fused_operands(ppass, Xs, V, dtype)
+    return (ppass.components, Xp, Vp, scalars,
+            torch.as_tensor(plan.row_ptr, device=device),
+            torch.as_tensor(plan.pair_cols, device=device), plan.tile)
+
+
+@pytest.mark.parametrize("tile_n", B4_TILES, ids=lambda s: f"tile{s[0]}n{s[1]}")
+@pytest.mark.parametrize("expr", sorted(B4_SPECS))
+def test_blocksparse_kernel_matches_plain(cuda, expr, tile_n):
+    """B4 against its plain version at t in {1, 9, 128}, fp32 and bf16; on
+    the all-active plan of a non-compact spec also against B1."""
+    from repro_torch.sparse import kmvm_sparse
+
+    for t in (1, 9, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            comps, Xp, Vp, sc, rp, cols, tile = _b4_problem(
+                expr, B4_SPECS[expr], tile_n[1], tile_n[0], t, dtype, cuda)
+            before = kmvm_sparse.launch_counts["kmvm_blocksparse"]
+            out = kmvm_sparse.kmvm_blocksparse(comps, Xp, Xp, Vp, sc, rp, cols,
+                                               tile=tile)
+            torch.cuda.synchronize()
+            assert kmvm_sparse.launch_counts["kmvm_blocksparse"] == before + 1
+            ref = kmvm_sparse.kmvm_blocksparse_plain(comps, Xp, Xp, Vp, sc, rp,
+                                                     cols, tile=tile)
+            assert out.shape == ref.shape and out.dtype == torch.float32
+            assert _rel_err(out, ref) <= TOL[dtype], (t, dtype)
+            if B4_SPECS[expr] is None:
+                dense = kmvm.kmvm_fused(comps, Xp, Xp, Vp, sc)
+                assert _rel_err(out, dense) <= TOL[dtype], (t, dtype)
+
+
+def test_blocksparse_rows_do_not_depend_on_zero_tiles(cuda):
+    """A query row's cross-covariance is the same bits whatever extra
+    (all-zero) column tiles its list holds: the engine's sorted chunks equal
+    the unchunked call."""
+    from repro_torch.sparse import kmvm_sparse
+
+    comps, Xp, Vp, sc, rp, cols, tile = _b4_problem(
+        "matern32 * wendland2", 0.15, 5001, 256, 1, torch.float32, cuda)
+    Z = Xp[:64].contiguous()
+    near = torch.unique(cols[:int(rp[1])]).to(torch.int32)
+    every = torch.arange(-(-5001 // tile), dtype=torch.int32, device=cuda)
+    a, b = (kmvm_sparse.kmvm_blocksparse(
+        comps, Z, Xp, Vp, sc,
+        torch.tensor([0, c.numel()], dtype=torch.int32, device=cuda), c,
+        tile=tile, row_tile=64) for c in (near, every))
+    assert near.numel() < every.numel()
+    assert torch.equal(a, b)
+
+
+def test_blocksparse_serving_launch_matches_plain(cuda):
+    """B4 at the serving shape: cross_matvec's one launch for a sorted query
+    chunk (64-row query tiles against 256-row plan tiles, query rows repeated
+    per column segment) at t = 1 and t = 100, against the plain version on
+    the same operands."""
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.sparse import kmvm_sparse, morton_order
+
+    X, _ = _spatial(10000, 5)
+    Z, _ = _spatial(1000, 6)
+    Z = torch.as_tensor(Z[morton_order(Z)], device=cuda)
+    op = make_operator(OperatorConfig(kernel="matern32 * wendland2",
+                                      backend="blocksparse", row_block=256),
+                       X, init_kernel_params("matern32 * wendland2",
+                                             radius=0.15, device=cuda),
+                       device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for t in (1, 100):
+        V = torch.randn((10000, t), generator=g, device=cuda)
+        args, kwargs = op.cross_launch_operands(Z, V)
+        assert (kwargs["tile"], kwargs["row_tile"]) == (256, 64)
+        assert args[1].shape[0] > 1024  # more than one column segment
+        out = kmvm_sparse.kmvm_blocksparse(*args, **kwargs)
+        torch.cuda.synchronize()
+        ref = kmvm_sparse.kmvm_blocksparse_plain(*args, **kwargs)
+        assert _rel_err(out, ref) <= TOL[torch.float32], t
+
+
+def test_cuda_tensor_never_reaches_blocksparse_plain(cuda, monkeypatch):
+    """A CUDA tensor gets B4 — through the wrapper and through the operator's
+    matvec and cross_matvec: the plain versions are never called."""
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.sparse import kmvm_sparse
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(kmvm_sparse, "kmvm_blocksparse_plain", boom)
+    monkeypatch.setattr(kmvm, "kmvm_plain", boom)
+    comps, Xp, Vp, sc, rp, cols, tile = _b4_problem(
+        "matern32 * wendland2", 0.15, 1000, 32, 9, torch.float32, cuda)
+    kmvm_sparse.kmvm_blocksparse(comps, Xp, Xp, Vp, sc, rp, cols, tile=tile)
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(700, 2)).astype(np.float32)
+    op = make_operator(OperatorConfig(kernel="matern32 * wendland2",
+                                      backend="blocksparse", row_block=64),
+                       X, init_kernel_params("matern32 * wendland2",
+                                             radius=0.2, device=cuda),
+                       device=cuda)
+    op.matvec(torch.ones((700, 3), device=cuda))
+    op.cross_matvec(op.X[:50] + 0.01, torch.ones(700, device=cuda))
+    torch.cuda.synchronize()
+
+
+def _spatial(n, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(size=(8, 2))
+    X = (centers[rng.integers(0, 8, n)]
+         + 0.04 * rng.standard_normal((n, 2))).astype(np.float32)
+    y = (np.sin(6 * X[:, 0]) * np.cos(4 * X[:, 1])
+         + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return X, y
+
+
+def test_sparse_training_on_card_matches_cpu(cuda):
+    """Two warm-start engine steps + Adam on the blocksparse backend with
+    the same injected probes: loss and hyperparameters on the card (B4)
+    equal the CPU run (the plain version)."""
+    from repro_torch.core.gp import ExactGPConfig
+    from repro_torch.core.kernels_math import init_kernel_params, params_leaves
+    from repro_torch.optim import adam_init, adam_update
+    from repro_torch.sparse import build_plan
+    from repro_torch.train.solver_state import WarmStartEngine
+
+    X, y = _spatial(900, 0)
+    probes = np.random.default_rng(1).standard_normal((900, 8)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = init_kernel_params("matern32 * wendland2", noise=0.3,
+                                    radius=0.15, device=dev)
+        plan = build_plan("matern32 * wendland2", X, params, tile=64)
+        cfg = ExactGPConfig(kernel="matern32 * wendland2", precond_rank=20,
+                            train_max_cg_iters=50, backend="blocksparse",
+                            plan=plan).mll_config()
+        engine = WarmStartEngine(cfg)
+        state = adam_init(params)
+        losses = []
+        for _ in range(2):
+            loss, _, g = engine.step(torch.as_tensor(X, device=dev),
+                                     torch.as_tensor(y, device=dev), params,
+                                     probes=torch.as_tensor(probes, device=dev))
+            params, state = adam_update(params, g, state, 0.1)
+            losses.append(float(loss))
+        out[str(dev)] = (losses, [float(a) for a in params_leaves(params)])
+    cpu, card = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4, atol=1e-4)
+
+
+def test_sparse_serving_on_card_matches_cpu(cuda):
+    """fit_posterior + the Morton-sorting engine on the blocksparse backend:
+    the card against the CPU run, same inputs and Lanczos start vector."""
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.serve import PredictionEngine, fit_posterior
+    from repro_torch.sparse import kmvm_sparse
+
+    X, y = _spatial(1500, 2)
+    Z, _ = _spatial(300, 3)
+    v0 = np.random.default_rng(4).standard_normal(1500).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        kmvm_sparse.reset_launch_counts()
+        op = make_operator(
+            OperatorConfig(kernel="matern32 * wendland2", backend="blocksparse",
+                           row_block=64), X,
+            init_kernel_params("matern32 * wendland2", noise=0.1, radius=0.15,
+                               device=dev), device=dev)
+        art = fit_posterior(op, y, v0=torch.as_tensor(v0), precond_rank=30,
+                            lanczos_rank=48, pred_tol=1e-4, max_cg_iters=300)
+        eng = PredictionEngine(art, device=dev, chunk_size=128)
+        assert eng.sort_queries
+        mean, var = eng.predict(Z)
+        out[str(dev)] = (mean.cpu(), var.cpu(),
+                         kmvm_sparse.launch_counts["kmvm_blocksparse"])
+    (m0, v0_, c0), (m1, v1, c1) = out["cpu"], out[str(cuda)]
+    assert c0 == 0 and c1 > 0
+    assert _rel_err(m1, m0) <= 1e-3
+    assert _rel_err(v1, v0_) <= 1e-3

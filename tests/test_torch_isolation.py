@@ -4,7 +4,9 @@
   `repro` (an AST scan).
 * With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
 * Entry points with no `device` raise when there is no card, rather than
-  running on the CPU.
+  running on the CPU (the operators, the posterior fit and engine, the
+  launcher, training: `fit_exact_gp`, `exact_mll`, and the blocksparse
+  backend).
 * A non-CPU tensor handed to a kernel wrapper never reaches the plain
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
 """
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core.kernels_math import init_params
+from repro_torch.core.kernels_math import init_kernel_params, init_params
 from repro_torch.core.operators import OperatorConfig, make_operator
 from repro_torch.kernels import kmvm
 from repro_torch.serve import PredictionEngine, fit_posterior
@@ -52,6 +54,7 @@ def test_port_runs_with_jax_unimportable():
         "from repro_torch.core.operators import OperatorConfig, make_operator\n"
         "from repro_torch.serve import PredictionEngine, fit_posterior\n"
         "import repro_torch.launch.serve_gp, repro_torch.interop\n"
+        "import repro_torch.train.gp_trainer, repro_torch.sparse\n"
         "X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)\n"
         "op = make_operator(OperatorConfig(backend='pallas'), X, init_params(),"
         " device='cpu')\n"
@@ -87,6 +90,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_gp.main(["--n", "16"])
+    from repro_torch.core.gp import ExactGP, ExactGPConfig
+    from repro_torch.core.mll import MLLConfig, exact_mll
+    from repro_torch.sparse import BlockSparseOperator
+    from repro_torch.train.gp_trainer import GPTrainConfig, fit_exact_gp
+
+    y = np.ones(8, np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_exact_gp(ExactGP(ExactGPConfig()), X, y, method="adam",
+                     cfg=GPTrainConfig(plain_adam_steps=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        exact_mll(MLLConfig(), torch.as_tensor(X), torch.as_tensor(y),
+                  init_params())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_operator(OperatorConfig(kernel="matern32 * wendland2",
+                                     backend="blocksparse"), X,
+                      init_kernel_params("matern32 * wendland2"))
+    assert BlockSparseOperator.grad_backend == "blocksparse"
 
 
 @pytest.mark.parametrize("dots", (False, True))
@@ -104,3 +124,19 @@ def test_non_cpu_tensor_never_reaches_plain(monkeypatch, dots):
             kmvm.kmvm_fused_dots((("rbf",),), X, X, V, V, V, scalars)
         else:
             kmvm.kmvm_fused((("rbf",),), X, X, V, scalars)
+
+
+def test_non_cpu_tensor_never_reaches_blocksparse_plain(monkeypatch):
+    from repro_torch.sparse import kmvm_sparse
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a non-CPU tensor")
+
+    monkeypatch.setattr(kmvm_sparse, "kmvm_blocksparse_plain", boom)
+    meta = {"device": "meta"}
+    X, V = torch.empty((8, 3), **meta), torch.empty((8, 1), **meta)
+    ptr = torch.empty((2,), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmvm_sparse.kmvm_blocksparse((("rbf",),), X, X, V,
+                                     torch.empty((2,), **meta), ptr, ptr,
+                                     tile=8)

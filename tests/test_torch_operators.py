@@ -114,8 +114,12 @@ def test_config_fields_match_reference():
 
 @pytest.mark.parametrize("backend", ("sharded", "blocksparse", "nope"))
 def test_unported_backends_raise(backend):
+    """What is not ported raises: the sharded backend, an unknown key, and
+    blocksparse's distributed composition (a mesh geometry); blocksparse on
+    one device is ported (tests/test_torch_sparse.py)."""
     X = np.zeros((8, 2), np.float32)
     p = params_from_numpy(jax.tree.map(np.asarray, ref_init("rbf")))
+    geom = object() if backend == "blocksparse" else None
     with pytest.raises(ValueError):
-        make_operator(OperatorConfig(kernel="rbf", backend=backend), X, p,
-                      device="cpu")
+        make_operator(OperatorConfig(kernel="rbf", backend=backend, geom=geom),
+                      X, p, device="cpu")

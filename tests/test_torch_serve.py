@@ -121,8 +121,12 @@ def test_artifact_version_and_sparse_plan_gates(tmp_path):
                        params_from_numpy(jax.tree.map(np.asarray, ref_init("rbf"))),
                        device="cpu")
     art = fit_posterior(op, y, precond_rank=5, lanczos_rank=8)
-    save_artifact(str(tmp_path / "v"), art._replace(meta={**art.meta, "sparse_plan": {}}))
-    with pytest.raises(ValueError, match="not ported"):
+    # a recorded sparsity plan is rebuilt on load and must match its digest
+    bad_plan = {"tile": 8, "margin": 0.1, "assume_sorted": False, "fill": 1.0,
+                "support": float("inf"), "num_pairs": 25, "digest": "0" * 40}
+    save_artifact(str(tmp_path / "v"),
+                  art._replace(meta={**art.meta, "sparse_plan": bad_plan}))
+    with pytest.raises(ValueError, match="does not match"):
         load_artifact(str(tmp_path / "v"), device="cpu")
     with pytest.raises(FileNotFoundError):
         load_artifact(str(tmp_path / "missing"), device="cpu")
