@@ -51,21 +51,51 @@ caught and skipped):
    one Morton-sorted 1024-query chunk (64-row query tiles against the
    256-row plan tiles, query rows repeated per column segment, t = 1 for
    the mean and t = 100 for the variance) is held against B4's plain
-   version on the same operands (2e-4 relative to max|out|) and timed. n
-   is cut from the paper's 2^20 (PERF.md).
+   version on the same operands (2e-4 relative to max|out|) and timed,
+   beside its plain version and its bound (1024 queries against the
+   active tiles' columns). n is cut from the paper's 2^20 (PERF.md).
 7. Cross-check: the MLL value and Eq. 2 gradients on `blocksparse` (B4)
    against the `partitioned` backend on the card at n = 2^13, with the
    same injected probes and preconditioner, within the conformance
    tolerances (value 3e-5 relative; hyperparameter gradients rtol 5e-3,
    atol 5e-4; the X gradient, whose entries are sums of large cancelling
    terms at this n, within 5e-3 of its largest entry).
-8. The `kernels` JSON line, then the last line
+8. Chunk-accumulate kernel B3 (`kmvm_fused_chunk`) against its plain
+   version (2e-4 / 5e-2 of max|out|): ragged m, column chunks of 64 to
+   4096, t in {1, 9, 128}, fp32 and bf16, two specs; and a walk over
+   chunks of whole 64-column tiles against one B1 launch over the same
+   n = 4096 columns, bit for bit at t = 9 and t = 128 and for a single
+   chunk at t = 1 (at t = 1 B1's in-block four-way column split regroups a
+   multi-chunk walk's sum, held to the tolerance instead). Then B3 is timed
+   at the shape of one ring step of eight cards at n = 2^20 (rows = chunk =
+   2^17, d = 9, t = 1 and t = 9) beside its plain version and its bound.
+9. Distributed (the paper's Section 3 engine, `repro_torch.core.
+   distributed`) as a one-rank NCCL group (a `file://` store in a temporary
+   directory; no network): `repro_torch.launch.train`'s gp-exact-1m path
+   in-process with `--gp-n 98304` (n = 2^17 of the houseelectric analogue,
+   d = 9: the per-card shard of the paper's 1M-point run on eight cards),
+   `--gp-backend pallas --gp-mode 2d --gp-overlap --steps 3`, fp32, and
+   `--save-artifact` (the single-device `fit_posterior` route); then
+   `make_mean_cache_solve` (tol 0.01, <= 400 iterations) and
+   `posterior_from_mean_cache`, saved, loaded and served through the
+   engine (checked against the unchunked result, <= 1e-5). The two routes'
+   test RMSE must agree within 2%; one MVM with overlap on and off must be
+   bit for bit equal; B3's launch counter, set to 0 just before the phase,
+   must be > 0 after it. Step seconds, CG iterations, the solve's residual
+   and iterations and peak memory are printed.
+10. Distributed blocksparse cross-check: the MLL value and Eq. 2
+   gradients of `ShardedOperator(inner_backend="blocksparse")` (B4 per
+   ring chunk) against the single-device blocksparse MLL on the spatial
+   field at n = 2^13, same injected probes and preconditioner, within the
+   conformance tolerances (as phase 7).
+11. The `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: a kernel's `bound_ms` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 67 TFLOP/s (H100 SXM fp32 outside the tensor cores, NVIDIA's data sheet);
-B4 counts the operations of the entries its plan holds active.
+B4 counts the operations of the entries its plan holds active; B3 counts
+B1's operations and reads its accumulator once besides.
 """
 
 from __future__ import annotations
@@ -76,6 +106,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -89,6 +120,9 @@ SPATIAL_TEST = 4096
 SPATIAL_EXPR = "matern32 * wendland2"
 SPATIAL_STEPS = 2
 CROSSCHECK_N = 1 << 13
+DIST_GP_N = 98304          # n_train = 4/9 of 3 * DIST_GP_N = 2^17
+DIST_STEPS = 3
+RING_STEP = 1 << 17        # rows = chunk of one ring step, 8 cards at 2^20
 DEV = "cuda"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -295,8 +329,8 @@ def phase_serve() -> dict:
         raise SystemExit(f"[serve] mean solve residual {report['rel_residual']} > 0.01")
     if not report["verify_rel_err"] <= 1e-5:
         raise SystemExit(f"[serve] verification {report['verify_rel_err']} > 1e-5")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("kmvm", "kmvm_dots"):
+        if launches[name] <= 0:
             raise SystemExit(f"[serve] kernel {name} was never launched on the "
                              f"main path")
     report["launches_total"] = launches
@@ -525,7 +559,7 @@ def phase_spatial(X, y, Xte, lte) -> dict:
     # (t = 1) and the variance, held against B4's plain version on the same
     # operands, then timed
     chunk = Xq[torch.as_tensor(morton_order(Xte), device=DEV)[:1024]]
-    cross_ms, cross_err = {}, {}
+    cross_ms, cross_err, cross_plain_ms, cross_bound = {}, {}, {}, {}
     for rhs in (engine.artifact.mean_cache, engine.artifact.var_Q):
         t = 1 if rhs.ndim == 1 else rhs.shape[1]
         args, kwargs = engine.op.cross_launch_operands(chunk, rhs)
@@ -534,6 +568,15 @@ def phase_spatial(X, y, Xte, lte) -> dict:
         ref = kmvm_sparse.kmvm_blocksparse_plain(*args, **kwargs)
         cross_err[t] = float(torch.max(torch.abs(out - ref))
                              / torch.max(torch.abs(ref)))
+        cross_plain_ms[t] = _time_ms(
+            lambda: kmvm_sparse.kmvm_blocksparse_plain(*args, **kwargs), 1)
+        # the work the chunk's data needs: 1024 queries against the
+        # columns of its active tiles (each query once, whatever the launch
+        # repeats per column segment), plus the CSR it reads
+        ncols = int(torch.unique(args[6]).numel()) * kwargs["tile"]
+        cross_bound[t] = _bound_ms(
+            args[0], chunk.shape[0], ncols, chunk.shape[1], t, 4, False,
+            extra_bytes=4 * (args[5].numel() + args[6].numel()))
         if not cross_err[t] <= TOL[torch.float32]:
             raise SystemExit(f"[spatial] MISMATCH B4 serving launch t={t} "
                              f"(rows {args[1].shape[0]}, tile {kwargs['tile']}, "
@@ -546,7 +589,8 @@ def phase_spatial(X, y, Xte, lte) -> dict:
         f"{traffic['batches']} batches; peak memory {peak / 2**30:.2f} GiB; "
         f"path {total_s:.1f} s; launches {launches} (B1/B2 {other}); "
         f"cross_matvec of a sorted 1024-query chunk (t: ms) {cross_ms}, "
-        f"its B4 launch vs plain (t: rel err) {cross_err}")
+        f"its B4 launch vs plain (t: rel err) {cross_err}, plain (t: ms) "
+        f"{cross_plain_ms}, bound (t: ms, by) {cross_bound}")
     if launches["kmvm_blocksparse"] <= 0:
         raise SystemExit("[spatial] B4 was never launched on the main path")
     return {"train_s": train_s, "train_b4": train_b4, "loss": res.loss_trace,
@@ -556,7 +600,8 @@ def phase_spatial(X, y, Xte, lte) -> dict:
             "fit_b4": fit_b4, "rel_residual": rel_res, "verify": verify,
             "test_rmse": test_rmse, "peak_bytes": peak, "path_s": total_s,
             "launches": launches, "cross_ms": cross_ms,
-            "cross_err": cross_err, **traffic}
+            "cross_err": cross_err, "cross_plain_ms": cross_plain_ms,
+            "cross_bound": cross_bound, **traffic}
 
 
 def phase_crosscheck(X, y) -> dict:
@@ -606,6 +651,280 @@ def phase_crosscheck(X, y) -> dict:
     return {"value_diff": dv, "grad_worst": worst}
 
 
+def _rel(a, b) -> float:
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+def _chunk_walk(fn, components, Xi, Xj, V, scalars, sizes):
+    acc = torch.zeros((Xi.shape[0], V.shape[1]), dtype=torch.float32,
+                      device=Xi.device)
+    j = 0
+    for nc in sizes:
+        fn(components, Xi, Xj[j:j + nc].contiguous(), V[j:j + nc].contiguous(),
+           scalars, acc)
+        j += nc
+    return acc
+
+
+def phase_chunk() -> dict:
+    """B3 against its plain version and B1; then timed at a ring step."""
+    from repro_torch.kernels import kmvm
+
+    worst, cases = 0.0, 0
+    for spec in ("matern32", "0.5*rbf + matern32"):
+        components, scal = SPECS[spec]
+        scalars = torch.tensor(scal, dtype=torch.float32, device=DEV)
+        for m, sizes in ((100, (64, 64, 128)), (257, (4096, 1000)),
+                         (33, (640, 77)), (4100, (4096, 4096))):
+            for t in (1, 9, 128):
+                for dtype in (torch.float32, torch.bfloat16):
+                    Xi, Xj, V, _, _ = _case_inputs(m, sum(sizes), 9, t, dtype,
+                                                   cases)
+                    out = _chunk_walk(kmvm.kmvm_fused_chunk, components, Xi,
+                                      Xj, V, scalars, sizes)
+                    torch.cuda.synchronize()
+                    ref = _chunk_walk(kmvm.kmvm_chunk_plain, components, Xi,
+                                      Xj, V, scalars, sizes)
+                    err = _rel(out, ref)
+                    cases += 1
+                    worst = max(worst, err / TOL[dtype])
+                    if not err <= TOL[dtype]:
+                        raise SystemExit(f"[chunk] MISMATCH {spec} m={m} "
+                                         f"{sizes} t={t} {dtype}: {err:.2e}")
+    components, scal = SPECS["matern32"]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=DEV)
+    bitwise = []
+    for t in (1, 9, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            Xi, Xj, V, _, _ = _case_inputs(300, 4096, 9, t, dtype, 50 + t)
+            full = kmvm.kmvm_fused(components, Xi, Xj, V, scalars)
+            one = _chunk_walk(kmvm.kmvm_fused_chunk, components, Xi, Xj, V,
+                              scalars, (4096,))
+            walk = _chunk_walk(kmvm.kmvm_fused_chunk, components, Xi, Xj, V,
+                               scalars, (64, 1024, 2048, 960))
+            torch.cuda.synchronize()
+            same = torch.equal(one, full) and (
+                torch.equal(walk, full) if t > 1 else _rel(walk, full) <= TOL[dtype])
+            if not same:
+                raise SystemExit(f"[chunk] walk != one B1 launch at t={t} {dtype}")
+            bitwise.append((t, str(dtype).split(".")[-1]))
+    log(f"[chunk] {cases} walks match their plain versions (worst error / "
+        f"tolerance {worst:.3f}); chunk walks equal one B1 launch at n = 4096 "
+        f"for {bitwise}")
+
+    # one ring step of eight cards at n = 2^20: rows = chunk = 2^17, d = 9
+    n, d = RING_STEP, 9
+    g = torch.Generator(device=DEV).manual_seed(13)
+    Xi = (torch.randn((n, d), generator=g, device=DEV) / math.sqrt(d)).contiguous()
+    Xj = (torch.randn((n, d), generator=g, device=DEV) / math.sqrt(d)).contiguous()
+    scalars = torch.tensor([1.0, 1.0], dtype=torch.float32, device=DEV)
+    components = (("matern32",),)
+    rows, abs_err = [], {}
+    for t, reps in ((1, 3), (9, 3)):
+        V = torch.randn((n, t), generator=g, device=DEV)
+        acc0 = torch.randn((n, t), generator=g, device=DEV)
+        out = kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc0.clone())
+        torch.cuda.synchronize()
+        ref = kmvm.kmvm_chunk_plain(components, Xi, Xj, V, scalars, acc0.clone())
+        err = _rel(out, ref)
+        abs_err[t] = float(torch.max(torch.abs(out - ref)))
+        if not err <= TOL[torch.float32]:
+            raise SystemExit(f"[chunk] MISMATCH ring step t={t}: {err:.2e}")
+        acc = acc0.clone()
+        ms = _time_ms(lambda: kmvm.kmvm_fused_chunk(components, Xi, Xj, V,
+                                                    scalars, acc), reps)
+        plain_ms = _time_ms(lambda: kmvm.kmvm_chunk_plain(
+            components, Xi, Xj, V, scalars, acc), 1)
+        bound, bound_by = _bound_ms(components, n, n, d, t, 4, False,
+                                    extra_bytes=n * t * 4)
+        rows.append({"shape": [n, n, d, t], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by})
+        log(f"[chunk] time B3 ring step ({n}, {n}, {d}, {t}): {ms:.3f} ms "
+            f"(bound {bound:.3f} ms, {bound / ms:.1%} of it), plain "
+            f"{plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+    return {"rows": rows, "abs_err": abs_err, "worst": worst, "cases": cases}
+
+
+def _dist_engine_rmse(art, X_test, y_test) -> tuple:
+    """(test rmse, engine-vs-unchunked error) of an artifact served through
+    a chunk-1024 engine."""
+    from repro_torch.core.gp import rmse
+    from repro_torch.launch import serve_gp
+    from repro_torch.serve import PredictionEngine
+
+    engine = PredictionEngine(art, chunk_size=1024, device=DEV)
+    engine.warmup()
+    Xq = torch.as_tensor(X_test, dtype=torch.float32, device=DEV)
+    check = serve_gp.verify(engine, Xq[:512])
+    mean, var = engine.predict(Xq)
+    if not (torch.isfinite(mean).all() and (var > 0).all()):
+        raise SystemExit("[dist] non-finite or non-positive predictions")
+    yq = torch.as_tensor(y_test, dtype=torch.float32, device=DEV)
+    return float(rmse(mean, yq)), check
+
+
+def phase_distributed() -> dict:
+    """The gp-exact-1m launcher on a one-rank NCCL group, then the mesh's
+    mean-cache solve, `posterior_from_mean_cache`, save, load and serve;
+    B3's launch counter covers the phase."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import ShardedOperator, make_mean_cache_solve
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.kernels import kmvm
+    from repro_torch.launch import train
+    from repro_torch.serve import (
+        load_artifact, posterior_from_mean_cache, save_artifact)
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"file://{store_dir}/store",
+                            rank=0, world_size=1)
+    single_dir = os.path.join(HERE, "build", "smoke_dist_single")
+    dist_dir = os.path.join(HERE, "build", "smoke_dist_artifact")
+    for dname in (single_dir, dist_dir):
+        shutil.rmtree(dname, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmvm.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = train.main([
+        "--arch", "gp-exact-1m", "--gp-n", str(DIST_GP_N), "--gp-backend",
+        "pallas", "--gp-mode", "2d", "--gp-overlap", "--steps", str(DIST_STEPS),
+        "--save-artifact", single_dir, "--device", DEV])
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    train_counts = dict(kmvm.launch_counts)
+    steps = [{k: tm[k] for k in ("mode", "cg_iters", "iters_per_rhs", "seconds")}
+             for tm in report["telemetry"]]
+    log(f"[dist] launcher (train {DIST_STEPS} steps + single-device "
+        f"fit_posterior) {launch_s:.2f} s: n={report['n']}, nll/n "
+        f"{[round(v, 5) for v in report['losses']]}, steps {steps}, launches "
+        f"{train_counts}; single-device residual "
+        f"{report['artifact_rel_residual']:.3e}")
+    if not all(np.isfinite(report["losses"])):
+        raise SystemExit(f"[dist] non-finite loss {report['losses']}")
+
+    mesh, geom, cfg = report["mesh"], report["geom"], report["cfg"]
+    params, X, y_loc = report["params"], report["X"], report["y_local"]
+    n = report["n"]
+    before = kmvm.launch_counts["kmvm_chunk"]
+    t1 = time.perf_counter()
+    a, rel = make_mean_cache_solve(mesh, geom, cfg, tol=0.01, max_iters=400)(
+        X, y_loc, params)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    solve_iters = kmvm.launch_counts["kmvm_chunk"] - before
+    rel = float(rel.max())
+    t2 = time.perf_counter()
+    op = make_operator(OperatorConfig(kernel=cfg.kernel, backend="pallas"),
+                       X[:n], params, device=DEV)
+    art = posterior_from_mean_cache(
+        op, a, generator=torch.Generator(device=DEV).manual_seed(0),
+        y=report["y"][:n], solve_rel_residual=rel)
+    torch.cuda.synchronize()
+    lanczos_s = time.perf_counter() - t2
+    save_artifact(dist_dir, art)
+    s = report["data"]
+    rmse_dist, check_dist = _dist_engine_rmse(load_artifact(dist_dir, device=DEV),
+                                              s.X_test, s.y_test)
+    rmse_single, check_single = _dist_engine_rmse(
+        load_artifact(single_dir, device=DEV), s.X_test, s.y_test)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(kmvm.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    # after the count: one MVM with the ring overlap on and off
+    V = torch.randn((geom.n_local, 9), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(3))
+    outs = [ShardedOperator(cfg.operator_config(geom._replace(overlap=ov)), X,
+                            params).matvec(V) for ov in (True, False)]
+    torch.cuda.synchronize()
+    same = torch.equal(outs[0], outs[1])
+    diff = abs(rmse_dist - rmse_single) / rmse_single
+    log(f"[dist] mean-cache solve {solve_s:.2f} s, {solve_iters} CG "
+        f"iterations (B3 launches), residual {rel:.3e}; posterior Lanczos "
+        f"{lanczos_s:.2f} s; engine vs unchunked {check_dist:.2e} / "
+        f"{check_single:.2e}; test rmse mesh route {rmse_dist:.5f}, "
+        f"single-device route {rmse_single:.5f} (rel diff {diff:.2e}); overlap "
+        f"on/off bitwise {same}; peak memory {peak / 2**30:.2f} GiB; path "
+        f"{path_s:.1f} s; launches {launches}")
+    if not rel <= 0.01:
+        raise SystemExit(f"[dist] mean-cache residual {rel} > 0.01")
+    if not (check_dist <= 1e-5 and check_single <= 1e-5):
+        raise SystemExit(f"[dist] engine verification {check_dist}, {check_single}")
+    if not diff <= 0.02:
+        raise SystemExit(f"[dist] test rmse differ by {diff:.3e} > 2%")
+    if not same:
+        raise SystemExit("[dist] overlap on and off differ")
+    if launches["kmvm_chunk"] <= 0:
+        raise SystemExit("[dist] B3 was never launched on the main path")
+    return {"report": report, "train_counts": train_counts, "steps": steps,
+            "launch_s": launch_s, "solve_s": solve_s, "solve_iters": solve_iters,
+            "rel_residual": rel, "lanczos_s": lanczos_s, "rmse_dist": rmse_dist,
+            "rmse_single": rmse_single, "launches": launches, "peak_bytes": peak,
+            "path_s": path_s, "store_dir": store_dir}
+
+
+def phase_dist_crosscheck(X, y) -> dict:
+    """MLL value and Eq. 2 gradients: the sharded operator on the
+    blocksparse inner backend (B4 per ring chunk) against the single-device
+    blocksparse operator, same probes and preconditioner."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.kernels_math import init_kernel_params, params_leaves
+    from repro_torch.core.mll import (
+        MLLConfig, operator_mll_backward, operator_mll_forward)
+    from repro_torch.core.operators import make_operator
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sparse import build_plan, kmvm_sparse, morton_order
+
+    perm = morton_order(X)
+    Xd = torch.as_tensor(X[perm], device=DEV)
+    yd = torch.as_tensor(y[perm], device=DEV)
+    n = Xd.shape[0]
+    params = init_kernel_params(SPATIAL_EXPR, noise=0.3, radius=0.15, device=DEV)
+    kw = dict(precond_rank=50, num_probes=8, max_cg_iters=400, min_cg_iters=3,
+              cg_tol=1e-6)
+    cfg = MLLConfig(kernel=SPATIAL_EXPR, backend="blocksparse",
+                    **{k: kw[k] for k in ("precond_rank", "num_probes",
+                                          "max_cg_iters", "cg_tol")})
+    op = make_operator(cfg.operator_config(), Xd, params, device=DEV)
+    precond = op.preconditioner(50)
+    probes = precond.sample(torch.Generator(device=DEV).manual_seed(5), 8)
+    (v0, _), (_, u_y, U, pinv_z), _ = operator_mll_forward(
+        op, yd, precond=precond, probes=probes, **kw)
+    _, _, g0 = operator_mll_backward(cfg._replace(plan=op.plan), Xd, params,
+                                     u_y, U, pinv_z, -1.0 / n)
+
+    mesh = make_host_mesh(device=DEV)
+    geom = D.make_geometry(mesh, n, 2, mode="2d", tile_multiple=256)
+    plan = build_plan(SPATIAL_EXPR, Xd, params, tile=256, assume_sorted=True)
+    dcfg = D.DistMLLConfig(kernel=SPATIAL_EXPR, backend="blocksparse", plan=plan,
+                           precond_rank=50, num_probes=8, max_cg_iters=400,
+                           cg_tol=1e-6)
+    pre = D.DistPreconditioner(precond.L, precond.sigma2, precond.chol_inner, n)
+    kmvm_sparse.reset_launch_counts()
+    loss, aux, g1 = D.make_mll_value_and_grad(mesh, geom, dcfg)(
+        Xd, yd, params, None, precond=pre, probes=probes)
+    torch.cuda.synchronize()
+    b4 = kmvm_sparse.launch_counts["kmvm_blocksparse"]
+    v1 = -float(loss) * n
+    dv = abs(v1 - float(v0))
+    worst = max(float(torch.max(torch.abs(a - b) / (5e-4 + 5e-3 * torch.abs(b))))
+                for a, b in zip(params_leaves(g1), params_leaves(g0)))
+    log(f"[dist-crosscheck] n={n}: MLL single-device blocksparse {float(v0):.6f} "
+        f"sharded blocksparse {v1:.6f} (|diff| {dv:.3e}, CG "
+        f"{int(aux[2].max())}); gradients worst |diff| / tolerance "
+        f"{worst:.3f}; B4 launches {b4}")
+    if not (dv < 3e-5 * max(1.0, abs(float(v0))) and worst <= 1.0 and b4 > 0):
+        raise SystemExit("[dist-crosscheck] sharded and single-device "
+                         "blocksparse disagree")
+    return {"value_diff": dv, "grad_worst": worst, "b4_launches": b4}
+
+
 def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -629,6 +948,13 @@ def main() -> None:
                             Xf[SPATIAL_N:], lf[SPATIAL_N:])
     Xc, yc, _ = make_spatial_field(CROSSCHECK_N, seed=DATA_SEED)
     phase_crosscheck(Xc, yc)
+    b3 = phase_chunk()
+    dist_run = phase_distributed()
+    phase_dist_crosscheck(Xc, yc)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(dist_run["store_dir"], ignore_errors=True)
     log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -662,7 +988,21 @@ def main() -> None:
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": row["shape"], "entries": row["entries"],
         "timings": b4["rows"], "cross_chunk_ms": spatial["cross_ms"],
-        "cross_chunk_rel_err": spatial["cross_err"]})
+        "cross_chunk_rel_err": spatial["cross_err"],
+        "cross_chunk_plain_ms": spatial["cross_plain_ms"],
+        "cross_chunk_bound_ms": spatial["cross_bound"]})
+    row = b3["rows"][1]  # t = 9, the training mBCG block
+    kernels.append({
+        "name": "kmvm_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kmvm.cu",
+        "replaces": "src/repro/kernels/kmvm.py:262", "matched": True,
+        "launches": dist_run["launches"]["kmvm_chunk"],
+        "train_launches": dist_run["train_counts"]["kmvm_chunk"],
+        "solve_launches": dist_run["solve_iters"],
+        "max_abs_err": b3["abs_err"][9], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": row["shape"], "timings": b3["rows"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

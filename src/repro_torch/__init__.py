@@ -10,12 +10,13 @@ public names. It imports `torch` only: nothing of JAX and nothing of
                        matmuls (TF32 off) at import
     core.kernels_math  kernel algebra (KernelSpec trees + KernelParams
                        NamedTuples of tensors, expression parser)
-    kernels.kmvm       the two dense CUDA kernels (fused kernel-MVM, and the
-                       same plus the CG dot block) with their plain versions
+    kernels.kmvm       the three dense CUDA kernels (fused kernel-MVM, the
+                       same plus the CG dot block, and its chunk-accumulate
+                       step) with their plain versions
     kernels.ops        spec -> fused-pass plan, dtype policy, block_fn
     core.partitioned   row-blocked K @ V and its autograd backward
     core.operators     KernelOperator registry: dense / partitioned / pallas
-                       (+ blocksparse, registered lazily by sparse)
+                       (+ blocksparse and sharded, registered lazily)
     sparse             Morton plan + block mask (same digests as the
                        reference), the block-sparse CUDA kernel, the
                        blocksparse backend
@@ -24,11 +25,18 @@ public names. It imports `torch` only: nothing of JAX and nothing of
     core.slq, core.mll SLQ log-determinant; the BBMM MLL and its Eq. 2
                        backward (`exact_mll`, a torch.autograd.Function)
     core.gp            ExactGP
+    core.distributed   the sharded engine on a torch.distributed mesh
+                       (ShardedOperator, 1-D / 2-D layouts, the ring
+                       contraction on the chunk-accumulate CUDA kernel, the
+                       distributed MLL, warm steps and mean-cache solve)
     core.predcache     mean cache + Lanczos variance cache, predictions
     optim              Adam, L-BFGS, LR schedules
-    train              warm-started solve engine, `fit_exact_gp`
+    train              warm-started solve engines (one device, sharded),
+                       `fit_exact_gp`
     serve              PosteriorArtifact, PredictionEngine, MicroBatcher
+    launch.mesh        process-group meshes, `init_distributed`
     launch.serve_gp    fit-or-load a posterior and serve requests
+    launch.train       train the exact GP on the distributed engine
 
 Every entry point puts its tensors on `cuda` unless the caller passes
 `device="cpu"`; with no card and no explicit device it raises.

@@ -1,3 +1,3 @@
 """repro_torch.core — kernel algebra, operators, preconditioner, PCG, SLQ,
-the BBMM marginal likelihood, ExactGP and the prediction caches (see the
-package docstring)."""
+the BBMM marginal likelihood, ExactGP, the distributed engine and the
+prediction caches (see the package docstring)."""

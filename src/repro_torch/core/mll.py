@@ -85,7 +85,9 @@ def operator_mll_forward(op, y, generator: torch.Generator | None = None, *,
                          x0: torch.Tensor | None = None,
                          logdet_carry: torch.Tensor | None = None,
                          track_residuals: bool = False):
-    """Paper Eq. 1 against a KernelOperator.
+    """Paper Eq. 1 against a KernelOperator, single-device or sharded (y is
+    the operator-local slice of the targets; scalar reductions go through
+    `op.allreduce`).
 
     y and every SLQ probe ride the SAME (n, t+1) mBCG block. Warm-start
     surface (`repro_torch.train.solver_state`): `precond` reuses a
@@ -100,6 +102,10 @@ def operator_mll_forward(op, y, generator: torch.Generator | None = None, *,
     """
     n = op.shape[0]
     yc = y - constant_mean(op.params)
+    if op.local_mask is not None:
+        # padded sharded layouts: zero the pad rows of the targets so every
+        # CG vector stays in the true-row subspace (n is the TRUE count)
+        yc = yc * op.local_mask
     if precond is None:
         precond = op.preconditioner(precond_rank)
     if probes is None:

@@ -31,7 +31,10 @@ Registry (`make_operator` selects by `OperatorConfig.backend`):
                   block-sparse CUDA kernel over a `repro_torch.sparse`
                   plan (registered lazily, as in the reference)
 
-`sharded` is not ported yet; asking for it raises.
+    sharded       K_hat over a `torch.distributed` mesh
+                  (`repro_torch.core.distributed`, registered lazily): rows
+                  and columns sharded per `OperatorConfig.geom`, composing
+                  an inner backend for the local tiles
 
 ``compute_dtype="bfloat16"`` runs the large products on bf16 operands with
 fp32 accumulation; the elementwise kernel math, the noise diagonal and all
@@ -78,10 +81,11 @@ class OperatorConfig(NamedTuple):
     fused_cg:      the fused-CG step (None = wherever supported, False off).
     plan:          `repro_torch.sparse.SparsePlan` of the blocksparse
                    backend; None lets the operator build one.
-    interpret, geom, inner_backend, autotune: the reference's TPU, mesh and
-                   tile-autotuner settings. Accepted so that its configs
-                   load; `geom` must be None, the others have no effect on
-                   this card.
+    geom:          the `DistGeometry` of the sharded backend (None elsewhere).
+    inner_backend: the sharded backend's per-tile backend ("partitioned",
+                   "pallas" or "blocksparse").
+    interpret, autotune: the reference's TPU and tile-autotuner settings.
+                   Accepted so that its configs load; no effect on this card.
     """
 
     kernel: str = "matern32"
@@ -99,7 +103,6 @@ class OperatorConfig(NamedTuple):
 
 
 _REGISTRY: dict[str, type] = {}
-_NOT_PORTED = ("sharded",)
 
 
 def register_operator(name: str) -> Callable[[type], type]:
@@ -116,6 +119,8 @@ def _ensure_lazy_registered() -> None:
     if "blocksparse" not in _REGISTRY:
         # repro_torch.sparse registers BlockSparseOperator on import
         from repro_torch.sparse import blocksparse  # noqa: F401
+    if "sharded" not in _REGISTRY:
+        from repro_torch.core import distributed  # noqa: F401
 
 
 def operator_backends() -> tuple[str, ...]:
@@ -127,10 +132,6 @@ def operator_backends() -> tuple[str, ...]:
 def _resolve_backend(name: str) -> type:
     if name not in _REGISTRY:
         _ensure_lazy_registered()
-    if name in _NOT_PORTED:
-        raise ValueError(
-            f"operator backend {name!r} is not ported to repro_torch yet "
-            f"(ported: {operator_backends()})")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -143,13 +144,26 @@ def make_operator(config: OperatorConfig, X, params, *,
                   device=None) -> "KernelOperator":
     """The single factory every consumer goes through. X and params move to
     `device` (None = the card; raises when there is none)."""
-    if config.geom is not None:
-        raise ValueError("mesh geometries are not ported to repro_torch yet")
+    if (config.geom is not None) != (config.backend == "sharded"):
+        raise ValueError("OperatorConfig.geom goes with backend='sharded' "
+                         "and only with it")
     dev = resolve_device(device)
     cls = _resolve_backend(config.backend)
     X = torch.as_tensor(X, device=dev)
     params = params_map(lambda a: torch.as_tensor(a, device=dev), params)
     return cls(config, X, params)
+
+
+def slab_block_fn_for(name: str, config: OperatorConfig, operand_dtype):
+    """The per-slab MVM override of backend `name` (registry-resolved, so a
+    new slab backend composes with the sharded operator at once)."""
+    return _resolve_backend(name).slab_block_fn(config, operand_dtype)
+
+
+def slab_acc_fn_for(name: str, config: OperatorConfig, operand_dtype):
+    """The chunk-accumulate step of backend `name`, or None where it has
+    none (see `KernelOperator.slab_acc_fn`)."""
+    return _resolve_backend(name).slab_acc_fn(config, operand_dtype)
 
 
 def _compute_dtype_of(config: OperatorConfig, operand_dtype) -> torch.dtype | None:
@@ -209,6 +223,10 @@ class KernelOperator:
     # the backend the MLL's Eq. 2 backward contracts through: the base-class
     # blockwise partials serve every dense backend; blocksparse has its own
     grad_backend = "partitioned"
+    # per-row validity mask of the operator's local vector layout: None
+    # except on padded sharded geometries, where the MLL forward multiplies
+    # it into the centered targets
+    local_mask = None
 
     def __init__(self, config: OperatorConfig, X: torch.Tensor, params):
         self.config = config
@@ -329,6 +347,14 @@ class KernelOperator:
             return None
         return mixed_block_fn(config.kernel, cdt)
 
+    @classmethod
+    def slab_acc_fn(cls, config: OperatorConfig, operand_dtype) -> Callable | None:
+        """acc_fn(Xi, Xj, V, params, acc) -> acc adding K(Xi, Xj) @ V into
+        an fp32 accumulator in place — the distributed ring's chunk step —
+        for backends with a kernel that carries it; None = the chunk result
+        is added to the partial by the caller."""
+        return None
+
     def _block_fn(self) -> Callable | None:
         return type(self).slab_block_fn(self.config, self.dtype)
 
@@ -394,6 +420,19 @@ class PallasFusedOperator(PartitionedOperator):
         from repro_torch.kernels.ops import pallas_block_fn
 
         return pallas_block_fn(config.kernel, compute_dtype=config.compute_dtype)
+
+    @classmethod
+    def slab_acc_fn(cls, config: OperatorConfig, operand_dtype) -> Callable:
+        """One chunk-accumulate launch per fused pass (`kmvm_block_acc`)."""
+        del operand_dtype
+        from repro_torch.kernels.ops import kmvm_block_acc
+
+        def fn(Xi, Xj, V, params, acc):
+            return kmvm_block_acc(config.kernel, Xi, Xj, V, params, acc,
+                                  compute_dtype=config.compute_dtype,
+                                  row_block=config.row_block)
+
+        return fn
 
     def matvec(self, V):
         from repro_torch.kernels.ops import kmvm_block, mvm_plan

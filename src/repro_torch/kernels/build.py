@@ -41,6 +41,8 @@ ENTRY_POINTS = {
                       _P], _I),
         "kmvm_dots_fwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                            _I, _I, _P], _I),
+        "kmvm_acc_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                          _P], _I),
         "kmvm_error_string": ([_I], ctypes.c_char_p),
     },
     "kmvm_sparse": {

@@ -1,9 +1,10 @@
 // Fused distance -> kernel-sum -> K @ V for NVIDIA Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels on the serving path:
-//   kmvm_kernel      <- src/repro/kernels/kmvm.py::kmvm_pallas      (_kmvm_kernel)
-//   kmvm_dots_kernel <- src/repro/kernels/kmvm.py::kmvm_pallas_dots (_kmvm_dots_kernel)
-// Both share the tile body of `_kernel_tile` (kmvm.py:81):
+// Replaces the three dense Pallas TPU kernels:
+//   kmvm_kernel      <- src/repro/kernels/kmvm.py::kmvm_pallas       (_kmvm_kernel)
+//   kmvm_dots_kernel <- src/repro/kernels/kmvm.py::kmvm_pallas_dots  (_kmvm_dots_kernel)
+//   kmvm_acc_kernel  <- src/repro/kernels/kmvm.py::kmvm_pallas_chunk (_kmvm_acc_kernel)
+// All share the tile body of `_kernel_tile` (kmvm.py:81):
 //   d2 = max(|xi|^2 + |xj|^2 - 2 xi.xj, 0)             (fp32, norms from the
 //                                                        operand-dtype values)
 //   K  = sum_c w_c prod_f phi_cf(q_cf * d2)             (fp32 epilogue)
@@ -11,7 +12,16 @@
 // and kmvm_dots_kernel adds, once a block's row tile of K @ V is complete,
 // the per-column partials [<Kv,v>, <r,v>, <r,r>, <v,v>] of that row tile,
 // written to a (num_row_tiles, 4, t) buffer that the caller sums: no
-// atomics, the same result on every run.
+// atomics, the same result on every run. kmvm_acc_kernel is one chunk step
+// of the distributed engine's ring contraction: acc += K(Xi, Xj_chunk) @
+// V_chunk with the (m, t) fp32 accumulator updated in place. One block owns
+// one 64-row tile of acc, seeds its registers from it, walks every column
+// tile of the chunk and writes the tile back, so no two blocks touch the
+// same rows; it never splits the columns (a split would need partial
+// buffers and would change the summation order). A walk over chunks of
+// whole 64-column tiles therefore repeats, step for step, the register sum
+// of one unsplit kmvm_kernel launch over the same columns, and gives its
+// bits (at t > 1; at t = 1 the in-block four-way column split regroups).
 //
 // Design. One thread block (256 threads) owns a BM = 64 row tile of the
 // output and walks every column tile of Xj and V (BN = 64) in an in-block
@@ -65,6 +75,17 @@ kmvm_dots_kernel(const T* __restrict__ Xi, const T* __restrict__ Xj,
 }
 
 template <typename T, int TCH>
+__global__ void __launch_bounds__(NT)
+kmvm_acc_kernel(const T* __restrict__ Xi, const T* __restrict__ Xj,
+                const T* __restrict__ V, const float* __restrict__ scal,
+                const KSpec sp, float* __restrict__ acc, int m, int nc, int d,
+                int t, int L) {
+  row_tile<T, TCH, false, DenseCols, true>(
+      Xi, Xj, V, nullptr, nullptr, scal, sp, acc, nullptr, blockIdx.x * BM, m,
+      d, t, L, DenseCols{0, (nc + BN - 1) / BN, nc});
+}
+
+template <typename T, int TCH>
 int launch_kmvm(const void* Xi, const void* Xj, const void* V,
                 const float* scal, const KSpec& sp, int L, float* out, int m,
                 int n, int d, int t, int nsplit, int tiles_per_split,
@@ -95,6 +116,33 @@ int launch_kmvm_dots(const void* Xi, const void* Xj, const void* V,
       static_cast<const T*>(Xi), static_cast<const T*>(Xj),
       static_cast<const T*>(V), Vrow, R, scal, sp, out, dots, m, n, d, t, L);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int TCH>
+int launch_kmvm_acc(const void* Xi, const void* Xj, const void* V,
+                    const float* scal, const KSpec& sp, int L, float* acc,
+                    int m, int nc, int d, int t, cudaStream_t stream) {
+  const size_t smem = smem_floats<TCH>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kmvm_acc_kernel<T, TCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((m + BM - 1) / BM);
+  kmvm_acc_kernel<T, TCH><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(Xi), static_cast<const T*>(Xj),
+      static_cast<const T*>(V), scal, sp, acc, m, nc, d, t, L);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_kmvm_acc(const void* Xi, const void* Xj, const void* V,
+                      const float* scal, const KSpec& sp, int L, float* acc,
+                      int m, int nc, int d, int t, cudaStream_t s) {
+  if (t == 1)
+    return launch_kmvm_acc<T, 1>(Xi, Xj, V, scal, sp, L, acc, m, nc, d, t, s);
+  if (t <= 16)
+    return launch_kmvm_acc<T, 16>(Xi, Xj, V, scal, sp, L, acc, m, nc, d, t, s);
+  return launch_kmvm_acc<T, 128>(Xi, Xj, V, scal, sp, L, acc, m, nc, d, t, s);
 }
 
 template <typename T>
@@ -158,6 +206,19 @@ int kmvm_dots_fwd(int dtype, const void* Xi, const void* Xj, const void* V,
                                              out, dots, m, n, d, t, s);
   return dispatch_kmvm_dots<float>(Xi, Xj, V, Vrow, R, scal, sp, L, out, dots,
                                    m, n, d, t, s);
+}
+
+// acc (m, t) fp32 is read and written in place: acc += K(Xi, Xj) @ V over
+// the nc columns of one chunk.
+int kmvm_acc_fwd(int dtype, const void* Xi, const void* Xj, const void* V,
+                 const float* scal, const int* spec, int L, float* acc, int m,
+                 int nc, int d, int t, void* stream) {
+  const KSpec sp = unpack_spec(spec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dispatch_kmvm_acc<__nv_bfloat16>(Xi, Xj, V, scal, sp, L, acc, m, nc,
+                                            d, t, s);
+  return dispatch_kmvm_acc<float>(Xi, Xj, V, scal, sp, L, acc, m, nc, d, t, s);
 }
 
 const char* kmvm_error_string(int code) {

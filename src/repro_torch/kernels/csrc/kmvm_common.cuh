@@ -1,4 +1,4 @@
-// The tile body shared by the fused kernel-MVM kernels (kmvm.cu: B1, B2)
+// The tile body shared by the fused kernel-MVM kernels (kmvm.cu: B1, B2, B3)
 // and the block-sparse kernel (kmvm_sparse.cu: B4), for NVIDIA Hopper
 // (sm_90a). The counterpart of `_kernel_tile` (src/repro/kernels/kmvm.py:81)
 // and of the same arithmetic in `_bs_kernel` (src/repro/sparse/kmvm_sparse.py:44):
@@ -25,7 +25,10 @@
 // and accumulation is fp32, and on the bf16 path each K entry is rounded to
 // bf16 before the K @ V product, as the reference's bf16 matmul operand is.
 // No atomics: every output row is written by exactly one block, in a fixed
-// order, so a launch gives the same result on every run.
+// order, so a launch gives the same result on every run. With ACC (B3) the
+// output tile is the running accumulator: the block seeds its registers
+// from `out` and writes the tile back in place, so a walk over column
+// chunks continues the same register sum a single launch would form.
 
 #pragma once
 
@@ -162,8 +165,11 @@ struct DenseCols {
 
 // One block: out rows [i0, min(i0 + BM, mlim)) = K(Xi rows, Xj[walked
 // columns]) @ V[walked columns]; with DOTS, also the row tile's CG partials
-// [<Kv,v>, <r,v>, <r,r>, <v,v>] per column into dots[0..4t).
-template <typename T, int TCH, bool DOTS, class Cols>
+// [<Kv,v>, <r,v>, <r,r>, <v,v>] per column into dots[0..4t); with ACC,
+// out rows += that product instead (the first column split's registers
+// start from out, the others from zero, so the in-block split sum adds in
+// the same order).
+template <typename T, int TCH, bool DOTS, class Cols, bool ACC = false>
 __device__ __forceinline__ void row_tile(
     const T* __restrict__ Xi, const T* __restrict__ Xj, const T* __restrict__ V,
     const float* __restrict__ Vrow, const float* __restrict__ R,
@@ -214,7 +220,14 @@ __device__ __forceinline__ void row_tile(
 #pragma unroll
     for (int p = 0; p < C::RPT; ++p)
 #pragma unroll
-      for (int q = 0; q < C::CPT; ++q) acc[p][q] = 0.0f;
+      for (int q = 0; q < C::CPT; ++q) {
+        float a0 = 0.0f;
+        if (ACC && js == 0) {
+          const int r = rt * C::RPT + p, c = cl + C::CL * q;
+          if (i0 + r < mlim && c < tcw) a0 = out[(size_t)(i0 + r) * t + c0 + c];
+        }
+        acc[p][q] = a0;
+      }
 
     for (int kch = 0; kch < nchunks; ++kch) {
       int j0, jlim;

@@ -1,13 +1,17 @@
 """Fused distance -> kernel-sum -> MVM: the CUDA kernels and their plain
 PyTorch versions.
 
-Two kernels live in `csrc/kmvm.cu` (see the note at its top):
+Three kernels live in `csrc/kmvm.cu` (see the note at its top):
 
     kmvm_fused       out = [sum_c w_c prod_f phi_cf(q_cf d2(Xi, Xj))] @ V
                      (replaces `repro.kernels.kmvm.kmvm_pallas`)
     kmvm_fused_dots  the same plus the CG dot block
                      [<Kv, v>, <r, v>, <r, r>, <v, v>] per RHS column
                      (replaces `repro.kernels.kmvm.kmvm_pallas_dots`)
+    kmvm_fused_chunk acc += the same product over one chunk of columns,
+                     acc updated in place: one step of the distributed
+                     engine's ring contraction (replaces
+                     `repro.kernels.kmvm.kmvm_pallas_chunk`)
 
 Inputs arrive pre-scaled by the pass's reference lengthscale, V by the
 base weight, in the operand dtype (fp32 or bf16); the component structure
@@ -16,7 +20,8 @@ scalar vector in `scalar_layout` order. The math is fp32 at any operand
 dtype and the outputs are fp32.
 
 Each wrapper dispatches on where its tensors lie: a CPU tensor goes to the
-plain version (`kmvm_plain`, `kmvm_dots_plain`), a CUDA tensor to the
+plain version (`kmvm_plain`, `kmvm_dots_plain`, `kmvm_chunk_plain`), a
+CUDA tensor to the
 kernel — or an exception; nothing falls back. `launch_counts` counts the
 kernel launches of each wrapper, so a run can show that its path went
 through the kernels.
@@ -42,7 +47,7 @@ _COL_TILE = 64       # BN of the kernels
 _SPLIT_TILES = 64    # column tiles per split of kmvm_fused (4096 columns)
 _PLAIN_ROWS = 1024   # row block of the plain versions
 
-launch_counts = {"kmvm": 0, "kmvm_dots": 0}
+launch_counts = {"kmvm": 0, "kmvm_dots": 0, "kmvm_chunk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -120,6 +125,12 @@ def kmvm_dots_plain(components, Xi, Xj, V, Vrow, R, scalars):
     dots = torch.stack([torch.sum(out * vr, 0), torch.sum(r * vr, 0),
                         torch.sum(r * r, 0), torch.sum(vr * vr, 0)])
     return out, dots
+
+
+def kmvm_chunk_plain(components, Xi, Xj, V, scalars, acc):
+    """Plain version of the chunk step: acc += kmvm_plain(...) in place."""
+    acc += kmvm_plain(components, Xi, Xj, V, scalars)
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +266,31 @@ def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars):
     _raise_on(code, "kmvm_dots")
     launch_counts["kmvm_dots"] += 1
     return out, torch.sum(partials, dim=0)
+
+
+def kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc) -> torch.Tensor:
+    """acc += [sum_c w_c prod_f phi(q d2(Xi, Xj))] @ V, in place; returns acc.
+
+    Xi (m, d) rows, Xj (nc, d) and V (nc, t) one chunk of columns, in one
+    operand dtype (fp32 or bf16); scalars (L,) and acc (m, t) fp32. One
+    launch, no column split: chunks of whole 64-column tiles walked in order
+    give the bits of one `kmvm_fused` launch over their columns wherever
+    that launch runs one split (n <= 4096) and t > 1.
+    """
+    if Xi.device.type == "cpu":
+        return kmvm_chunk_plain(components, Xi, Xj, V, scalars, acc)
+    dtype_code = _check_launch(components, scalars, (Xi, Xj, V),
+                               fp32_rows=(("acc", acc),))
+    m, d = Xi.shape
+    nc, t = V.shape
+    if m == 0 or nc == 0:
+        return acc
+    lib = build.library()
+    code = lib.kmvm_acc_fwd(
+        dtype_code, Xi.data_ptr(), Xj.data_ptr(), V.data_ptr(),
+        scalars.data_ptr(), _spec_array(components), scalars.shape[0],
+        acc.data_ptr(), m, nc, d, t,
+        torch.cuda.current_stream(Xi.device).cuda_stream)
+    _raise_on(code, "kmvm_chunk")
+    launch_counts["kmvm_chunk"] += 1
+    return acc

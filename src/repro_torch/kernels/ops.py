@@ -37,7 +37,7 @@ from repro_torch.core.kernels_math import (
     softplus,
 )
 
-from .kmvm import kmvm_fused, kmvm_fused_dots
+from .kmvm import kmvm_fused, kmvm_fused_chunk, kmvm_fused_dots
 
 
 class _FusedPass(NamedTuple):
@@ -177,6 +177,43 @@ def kmvm_block(kernel, Xi, Xj, V, params, *, compute_dtype=None) -> torch.Tensor
 
     out = acc.to(V.dtype)
     return out[:, 0] if squeeze else out
+
+
+def kmvm_block_acc(kernel, Xi, Xj, V, params, acc, *, compute_dtype=None,
+                   row_block: int = 1024) -> torch.Tensor:
+    """acc += K(Xi, Xj) @ V in place (acc (m, t) fp32); returns acc.
+
+    The chunk step of the distributed engine's ring contraction on the fused
+    backend: one `kmvm_fused_chunk` launch per fused pass into the same acc,
+    with `kmvm_block`'s prescaling and dtype policy. `linear` terms add their
+    thin matmuls; dense-fallback terms add their slabs `row_block` rows at a
+    time, so no (m, n) slab is live.
+    """
+    cdt = _compute_dtype(compute_dtype)
+    if V.ndim == 1:
+        V = V[:, None]
+    plan = mvm_plan(kernel, params)
+    for ppass in plan.passes:
+        kmvm_fused_chunk(ppass.components, _prescale(ppass, Xi, cdt),
+                         _prescale(ppass, Xj, cdt), _scale_rhs(ppass, V, cdt),
+                         _pass_scalar_vector(ppass, Xi.device), acc)
+    for w, p in plan.linear_terms:
+        s = softplus(p.raw_scale)
+        proj = _mixed_dot((Xj / s).T, V.to(torch.float32), cdt)   # (d, t)
+        acc += (w * _mixed_dot(Xi / s, proj, cdt)).to(torch.float32)
+    if plan.fallback_terms:
+        xj32 = Xj.to(torch.float32)
+        v32 = V.to(torch.float32)
+        for i in range(0, Xi.shape[0], row_block):
+            xb = Xi[i:i + row_block].to(torch.float32)
+            for term in plan.fallback_terms:
+                K = None
+                for kind, p in term.factors:
+                    Kf = leaf_matrix(kind, p, xb, xj32)
+                    K = Kf if K is None else K * Kf
+                acc[i:i + row_block] += (term.weight * _mixed_dot(K, v32, cdt)
+                                         ).to(torch.float32)
+    return acc
 
 
 def fused_pass_or_none(kernel, params) -> _FusedPass | None:

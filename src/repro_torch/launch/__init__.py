@@ -1,1 +1,2 @@
-"""repro_torch.launch — command-line entry points."""
+"""repro_torch.launch — process-group meshes (`mesh`) and the command-line
+entry points (`serve_gp`, `train`)."""

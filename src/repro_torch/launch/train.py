@@ -1,0 +1,249 @@
+"""Training launcher: the paper's exact GP through the distributed engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gp-exact-1m \
+        [--gp-n 8192] [--steps 100] [--gp-mode 1d|2d] \
+        [--gp-backend partitioned|pallas|blocksparse] [--gp-overlap] \
+        [--data D] [--model M] [--save-artifact DIR] [--device cuda|cpu]
+
+    torchrun --nproc_per_node=8 -m repro_torch.launch.train \
+        --arch gp-exact-1m --gp-n 786432 --gp-mode 2d --model 2 ...
+
+The counterpart of `repro.launch.train`'s `--arch gp-exact-1m` path, with the
+reference's flags and defaults. One process per rank: under `torchrun` each
+rank joins the NCCL group from RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR
+and takes card LOCAL_RANK; a lone process forms a one-rank group through a
+`file://` store. `--device cpu` runs the same program on gloo (default:
+the card; without one it raises). The mesh is (data, model) over the
+world (`--data` defaults to world / model).
+
+The houseelectric analogue (`data/synthetic.py`, 4/9 of 3 x `--gp-n`
+points train) is padded — never truncated — to the mesh's shard grid, the
+hyperparameters train with Adam (lr 0.1) through `DistWarmStartEngine`
+(precond rank 100, 8 probes, <= 20 CG steps at tol 1.0), and blocksparse
+runs replan the sparsity whenever the hyperparameters drift past the plan's
+margin. `--save-artifact` fits a servable posterior on rank 0 on the true
+rows (single-device `fit_posterior` on the same backend) and saves it.
+Rank 0 prints one line per step; `main` returns a report dict.
+
+The LM stack (`--arch` other than gp-exact-1m, with --batch / --seq /
+--lr / --full / --ckpt) is not ported (ROADMAP A8) and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+GP_ARCH = "gp-exact-1m"
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--data", type=int, default=None, help="mesh data size")
+    ap.add_argument("--model", type=int, default=1, help="mesh model size")
+    ap.add_argument("--ckpt", default="checkpoints")
+    ap.add_argument("--gp-mode", default="2d", choices=("1d", "2d"))
+    ap.add_argument("--gp-n", type=int, default=8192)
+    ap.add_argument("--gp-kernel", default="matern32",
+                    help="kernel: a stationary kind (matern32) or a spec "
+                         "expression, e.g. '0.5*rbf + matern32'")
+    ap.add_argument("--gp-backend", default="partitioned",
+                    choices=("partitioned", "pallas", "blocksparse"),
+                    help="inner backend per rank tile (pallas = the fused "
+                         "CUDA kernels; blocksparse Morton-sorts the data)")
+    ap.add_argument("--gp-overlap", action="store_true",
+                    help="ring-pipeline the per-iteration gather against the "
+                         "local tile compute")
+    ap.add_argument("--gp-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="operator compute dtype")
+    ap.add_argument("--gp-refresh-every", type=int, default=5,
+                    help="rebuild the preconditioner + redraw the probes every "
+                         "K steps (0 = every step cold)")
+    ap.add_argument("--gp-drift-threshold", type=float, default=0.1,
+                    help="relative hyperparameter drift that forces a refresh")
+    ap.add_argument("--save-artifact", default="",
+                    help="directory: persist a servable PosteriorArtifact")
+    ap.add_argument("--obs-trace", default="",
+                    help="span tracing (repro.obs) is not ported (ROADMAP "
+                         "A7); giving a path raises")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' on purpose)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Run the launcher; returns the report of the GP path."""
+    args = parse_args(argv)
+    if args.obs_trace:
+        raise NotImplementedError("--obs-trace: repro_torch has no obs "
+                                  "package yet (ROADMAP A7)")
+    if args.arch != GP_ARCH:
+        raise NotImplementedError(
+            f"--arch {args.arch!r}: the LM stack is not ported to repro_torch "
+            f"(ROADMAP A8); only --arch {GP_ARCH} runs")
+    return _train_gp(args)
+
+
+def prepare_gp_data(mesh, X_host, y_host, *, backend, gp_mode, kernel,
+                    params, margin=0.1, overlap=False, row_block=1024,
+                    tile=256):
+    """(geom, X, y, plan) for the distributed engine — NO point dropped.
+
+    Every row of (X_host, y_host) trains: non-divisible n pads the layout
+    with masked rows (see `DistGeometry`) instead of truncating. The
+    blocksparse path Morton-sorts the data, pads, and builds the plan on
+    the padded array so every per-rank chunk owns whole tiles; `tile`
+    shrinks to 8 when the dataset is smaller than one tile per rank.
+    Returned X/y are float32 CPU tensors with geom.n_padded rows; rows
+    [geom.n:] are zero pad, excluded from every solve.
+    """
+    from repro_torch.core.distributed import make_geometry, pad_to_geometry
+
+    X_host, y_host = np.asarray(X_host), np.asarray(y_host)
+    n, d = X_host.shape
+    if backend == "blocksparse":
+        from repro_torch.sparse import build_plan, morton_order
+
+        if n < mesh.devices.size * tile:
+            tile = 8
+        perm = morton_order(X_host)
+        geom = make_geometry(mesh, n, d, mode=gp_mode, row_block=row_block,
+                             overlap=overlap, tile_multiple=tile)
+        X = pad_to_geometry(geom, torch.as_tensor(X_host[perm], dtype=torch.float32))
+        y = pad_to_geometry(geom, torch.as_tensor(y_host[perm], dtype=torch.float32))
+        plan = build_plan(kernel, X, params, tile=tile, margin=margin,
+                          assume_sorted=True)
+        return geom, X, y, plan
+    geom = make_geometry(mesh, n, d, mode=gp_mode, row_block=row_block,
+                         overlap=overlap)
+    X = pad_to_geometry(geom, torch.as_tensor(X_host, dtype=torch.float32))
+    y = pad_to_geometry(geom, torch.as_tensor(y_host, dtype=torch.float32))
+    return geom, X, y, None
+
+
+def _train_gp(args) -> dict:
+    from repro_torch.core.distributed import DistMLLConfig, replicate, shard_vector
+    from repro_torch.core.kernels_math import (
+        KERNEL_KINDS, init_params_for, parse_kernel, spec_expr)
+    from repro_torch.data.synthetic import make_regression_dataset
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
+    from repro_torch.optim import adam_init, adam_update
+    from repro_torch.train.solver_state import DistWarmStartEngine, WarmStartConfig
+
+    mesh = make_host_mesh(data=args.data, model=args.model, device=args.device)
+    lead = mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
+    s = make_regression_dataset("houseelectric", max_points=args.gp_n * 3)
+    gp_dtype = None if args.gp_dtype == "float32" else args.gp_dtype
+    kernel = args.gp_kernel if args.gp_kernel in KERNEL_KINDS \
+        else parse_kernel(args.gp_kernel)
+    params = init_params_for(kernel, noise=0.3, dtype=torch.float32,
+                             device=mesh.device)
+    kernel_desc = kernel if isinstance(kernel, str) else spec_expr(kernel)
+
+    geom, X, y, plan = prepare_gp_data(
+        mesh, s.X_train, s.y_train, backend=args.gp_backend,
+        gp_mode=args.gp_mode, kernel=kernel, params=params,
+        margin=args.gp_drift_threshold, overlap=args.gp_overlap)
+    n = geom.n
+    if n != s.X_train.shape[0]:
+        raise AssertionError("no training point may be dropped")
+    if plan is not None:
+        say(f"[train-gp] sparsity plan: {plan}")
+    if geom.has_pad:
+        say(f"[train-gp] padded layout: {geom.pad_rows} masked rows "
+            f"({n} -> {geom.n_padded})")
+    cfg = DistMLLConfig(kernel=kernel, precond_rank=100, num_probes=8,
+                        max_cg_iters=20, cg_tol=1.0, backend=args.gp_backend,
+                        compute_dtype=gp_dtype, plan=plan)
+    warm = WarmStartConfig(enabled=args.gp_refresh_every > 0,
+                           refresh_every=max(args.gp_refresh_every, 1),
+                           drift_threshold=args.gp_drift_threshold)
+    engine = DistWarmStartEngine(mesh, geom, cfg, warm)
+    state = adam_init(params)
+    telemetry_done: list = []  # closed-out engines' telemetry (replans)
+    Xr, ys = replicate(mesh, X), shard_vector(mesh, geom, y)
+    say(f"[train-gp] n={n} kernel={kernel_desc} mode={args.gp_mode} "
+        f"backend={args.gp_backend} dtype={args.gp_dtype} "
+        f"refresh_every={args.gp_refresh_every} mesh={mesh_axis_sizes(mesh)} "
+        f"device={mesh.device}")
+    losses, replans = [], []
+    for step_i in range(args.steps):
+        if plan is not None:
+            from repro_torch.sparse import build_plan, needs_replan
+
+            replan, drift = needs_replan(plan, params, args.gp_drift_threshold,
+                                         kernel=kernel)
+            if replan:
+                plan = build_plan(kernel, X, params, tile=plan.tile,
+                                  margin=args.gp_drift_threshold,
+                                  assume_sorted=True)
+                cfg = cfg._replace(plan=plan)
+                telemetry_done.extend(engine.telemetry)
+                engine = DistWarmStartEngine(mesh, geom, cfg, warm)
+                replans.append((step_i, drift))
+                say(f"[train-gp] step {step_i}: replanned sparsity "
+                    f"(drift={drift:.3f}, fill={plan.fill:.3f})")
+        gen = torch.Generator(device=mesh.device).manual_seed(step_i)
+        loss, aux, grads = engine.step(Xr, ys, params, gen)
+        params, state = adam_update(params, grads, state, 0.1)
+        t = engine.telemetry[-1]
+        losses.append(float(loss))
+        say(f"[train-gp] step {step_i}: nll/n={losses[-1]:.4f} "
+            f"solve={t['mode']} cg_iters={t['cg_iters']} "
+            f"drift={t['drift']:.3f} dt={t['seconds']:.2f}s")
+    telemetry_done.extend(engine.telemetry)
+    total = sum(t["cg_iters"] for t in telemetry_done)
+    refreshes = sum(t["refreshed"] for t in telemetry_done)
+    say(f"[train-gp] solver telemetry: total_cg_iters={total} "
+        f"precond_refreshes={refreshes} steps={args.steps}")
+    report = {"n": n, "d": int(X.shape[1]), "mesh": mesh, "geom": geom,
+              "cfg": cfg, "kernel": kernel, "params": params, "X": Xr,
+              "y": y, "y_local": ys, "losses": losses,
+              "telemetry": telemetry_done, "replans": replans, "data": s,
+              "artifact": None}
+
+    if args.save_artifact and lead:
+        # mesh-trained hyperparameters -> a servable single-device artifact,
+        # fit on the TRUE rows only (pad rows are layout, not data)
+        from repro_torch.core.operators import OperatorConfig, make_operator
+        from repro_torch.serve.artifact import fit_posterior, save_artifact
+
+        X_true, y_true = X[:n], y[:n]
+        art_plan = None
+        if plan is not None:
+            from repro_torch.sparse import build_plan
+
+            art_plan = build_plan(cfg.kernel, X_true, params, tile=plan.tile,
+                                  margin=args.gp_drift_threshold,
+                                  assume_sorted=True)
+        op = make_operator(
+            OperatorConfig(kernel=cfg.kernel, backend=args.gp_backend,
+                           compute_dtype=gp_dtype, plan=art_plan),
+            X_true, params, device=mesh.device)
+        art = fit_posterior(
+            op, y_true, precond_rank=cfg.precond_rank,
+            generator=torch.Generator(device=mesh.device).manual_seed(args.steps))
+        path = save_artifact(args.save_artifact, art)
+        report.update(artifact=path,
+                      artifact_rel_residual=art.meta["solve_rel_residual"])
+        say(f"[train-gp] artifact: {path} "
+            f"(rel_residual={art.meta['solve_rel_residual']:.2e})")
+    return report
+
+
+if __name__ == "__main__":
+    main()

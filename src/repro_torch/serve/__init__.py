@@ -2,7 +2,8 @@
 
     artifact    PosteriorArtifact: versioned save/load (the reference's
                 format 3) of hyperparameters, train inputs and targets, the
-                mean and Lanczos variance caches; `artifact_digest`
+                mean and Lanczos variance caches; `artifact_digest`;
+                `posterior_from_mean_cache` (a mesh-solved mean cache)
     engine      PredictionEngine: restore onto a KernelOperator backend on
                 one device; fixed-chunk predict(Xstar)
     batching    MicroBatcher: closed size/deadline request queue
@@ -16,6 +17,7 @@ from .artifact import (
     artifact_digest,
     fit_posterior,
     load_artifact,
+    posterior_from_mean_cache,
     save_artifact,
 )
 from .batching import BatcherConfig, MicroBatcher
@@ -30,5 +32,6 @@ __all__ = [
     "artifact_digest",
     "fit_posterior",
     "load_artifact",
+    "posterior_from_mean_cache",
     "save_artifact",
 ]

@@ -37,7 +37,11 @@ from repro_torch.core.kernels_math import (
     spec_to_json,
 )
 from repro_torch.core.operators import OperatorConfig
-from repro_torch.core.predcache import PredictionCache, build_prediction_cache
+from repro_torch.core.predcache import (
+    PredictionCache,
+    build_prediction_cache,
+    build_variance_cache,
+)
 from repro_torch.device import resolve_device
 from repro_torch.train.checkpoint import (
     flatten_with_keys,
@@ -112,6 +116,45 @@ def fit_posterior(
         solve_rel_residual=cache.solve_rel_residual, meta=meta)
 
 
+def posterior_from_mean_cache(
+    op,
+    mean_cache,
+    *,
+    v0: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    y=None,
+    lanczos_rank: int = 128,
+    solve_rel_residual=None,
+) -> PosteriorArtifact:
+    """Artifact from an externally solved mean cache (the distributed
+    engine's `make_mean_cache_solve`): only the r Lanczos MVMs run here, on
+    the single-device operator `op`, so a mesh-solved posterior becomes
+    servable without redoing the tight solve. Pass the training targets `y`
+    to keep them in the artifact; without them the y slot is NaN-filled and
+    `meta["has_y"]` is False."""
+    Q, T_chol = build_variance_cache(op, v0=v0, generator=generator,
+                                     lanczos_rank=lanczos_rank)
+    mean_cache = torch.as_tensor(mean_cache, device=op.device)
+    rel = torch.as_tensor(
+        float("nan") if solve_rel_residual is None else solve_rel_residual,
+        dtype=mean_cache.dtype, device=op.device)
+    meta = {
+        "n": int(op.shape[0]),
+        "d": int(op.X.shape[1]),
+        "lanczos_rank": int(Q.shape[1]),
+        "solve_rel_residual": float(torch.max(rel)),
+        "mean_cache_source": "external",
+        "has_y": y is not None,
+    }
+    y_arr = (torch.as_tensor(y, device=op.device) if y is not None
+             else torch.full((op.shape[0],), float("nan"),
+                             dtype=mean_cache.dtype, device=op.device))
+    return PosteriorArtifact(
+        config=op.config, params=op.params, X=op.X, y=y_arr,
+        mean_cache=mean_cache, var_Q=Q, var_T_chol=T_chol,
+        solve_rel_residual=rel, meta=meta)
+
+
 def _arrays_tree(artifact: PosteriorArtifact) -> dict:
     return {
         "params": artifact.params,
@@ -128,8 +171,7 @@ def _config_dict(config: OperatorConfig) -> tuple[dict, object]:
     """(the config as the manifest holds it, without geom and plan; the
     plan)."""
     cfg = config._asdict()
-    if cfg.pop("geom") is not None:
-        raise ValueError("mesh geometries are not ported to repro_torch yet")
+    cfg.pop("geom")  # mesh geometry is a runtime choice, not state
     return cfg, cfg.pop("plan")
 
 

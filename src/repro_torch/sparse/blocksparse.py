@@ -31,10 +31,15 @@ operator registry. The operator executes a `SparsePlan`:
 When `OperatorConfig.plan` is None the operator builds one at construction
 and records it on its config, so posterior artifacts capture the plan the
 operator executed.
+
+The distributed composition, `dist_blocksparse_kmvm`, runs the same kernel
+inside the sharded operator's row layout (pre-sorted data, whole tiles per
+rank); `validate_dist_plan` checks that contract.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.core.kernels_math import (
     kernel_matrix,
+    noise_variance,
     params_leaves,
     params_unflatten,
 )
@@ -61,7 +67,7 @@ from repro_torch.kernels.ops import (
 )
 
 from .kmvm_sparse import kmvm_blocksparse, tile_rows
-from .plan import SparsePlan, build_plan, spec_support_radius
+from .plan import SparsePlan, build_plan, chunk_sliced_plan, spec_support_radius
 
 _QUERY_TILE = 64     # rows per tile of a query chunk in `cross_matvec`
 _SEGMENT_TILES = 32  # plan tiles per column segment of `cross_matvec`
@@ -299,3 +305,144 @@ class BlockSparseOperator(KernelOperator):
             self.config.kernel, self._Xs, A[self._perm], V[self._perm],
             self.params, self.plan)
         return self._add_noise_grad(gp, A, V), gXs[self._inv_perm]
+
+
+# ---------------------------------------------------------------------------
+# distributed composition: each rank owns the mask slice of its tile
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _rows_csr(plan: SparsePlan, r0: int, r1: int, device: str):
+    """(row_ptr, cols) int32 on `device`: the CSR of plan row tiles
+    [r0, r1), offsets rebased to 0."""
+    rp = plan.row_ptr
+    ptr = (rp[r0:r1 + 1] - rp[r0]).astype(np.int32)
+    cols = plan.pair_cols[rp[r0]:rp[r1]].astype(np.int32)
+    return (torch.as_tensor(ptr, device=device),
+            torch.as_tensor(cols, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_csrs(plan: SparsePlan, n_chunks: int, r0: int, r1: int,
+                device: str) -> tuple:
+    """Per global vector chunk c: (row_ptr, cols) int32 on `device` of plan
+    row tiles [r0, r1) against the chunk's own tiles (in-chunk indices,
+    ascending) — `chunk_sliced_plan` in the block-sparse kernel's CSR form."""
+    sl = chunk_sliced_plan(plan, n_chunks)
+    out = []
+    for c in range(n_chunks):
+        valid = sl.valid[r0:r1, c]
+        counts = valid.sum(axis=1)
+        ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        cols = sl.cols[r0:r1, c][valid].astype(np.int32)
+        out.append((torch.as_tensor(ptr, device=device),
+                    torch.as_tensor(cols, device=device)))
+    return tuple(out)
+
+
+def _local_rows_kmvm(kernel, params, x_rows, x_cols, v, ppass, row_ptr, cols,
+                     tile, compute_dtype):
+    """K(x_rows, x_cols) @ v over the CSR's active tiles: one block-sparse
+    launch (fp32 out) when the spec is one fused pass, else one gathered
+    slab per row tile."""
+    if ppass is not None:
+        Xp = _prescale(ppass, x_rows, torch.float32 if compute_dtype is None
+                       else compute_dtype)
+        Xc, Vc, scalars = fused_operands(ppass, x_cols, v, compute_dtype)
+        return kmvm_blocksparse(ppass.components, Xp, Xc, Vc, scalars,
+                                row_ptr, cols, tile=tile)
+    inner = _inner_block_fn(kernel, compute_dtype)
+    out = v.new_empty((x_rows.shape[0], v.shape[1]))
+    rp = row_ptr.tolist()
+    for r in range(len(rp) - 1):
+        idx = tile_rows(cols[rp[r]:rp[r + 1]], tile, x_cols.shape[0])
+        out[r * tile:(r + 1) * tile] = inner(
+            x_rows[r * tile:(r + 1) * tile], x_cols[idx], v[idx],
+            params).to(v.dtype)
+    return out
+
+
+def dist_blocksparse_kmvm(geom, kernel, X: torch.Tensor, V_local: torch.Tensor,
+                          params, plan: SparsePlan, *,
+                          add_noise: bool = True, noise_floor: float = 1e-4,
+                          compute_dtype=None,
+                          overlap: bool | None = None) -> torch.Tensor:
+    """Distance-pruned distributed MVM — 1-D or (rows x cols) 2-D mesh.
+
+    Contract (validated by ShardedOperator): X and the CG vectors are
+    PRE-SORTED in Morton order (plan built with assume_sorted=True on the
+    PADDED X, so perm is the identity) and every per-rank vector chunk holds
+    whole plan tiles (make_geometry(..., tile_multiple=plan.tile)).
+
+    1-D serial: one all-gather of V, then ONE block-sparse launch over this
+    rank's slice of the plan's row tiles. On column axes (2-D) or with
+    overlap the MVM runs as the dense engine's chunked contraction: per
+    source chunk, one launch against that chunk's own CSR (the in-chunk
+    active col tiles of `chunk_sliced_plan`), added into the partial, so the
+    per-step work stays fill-proportional on the mesh. Only the FORWARD
+    MVMs are pruned; `ShardedOperator.quad_form_grads` keeps the dense
+    blockwise partials, as the reference does.
+    """
+    from repro_torch.core.distributed import (
+        _all_gather, _chunk_mask, _chunked_contraction, _linear_index,
+        _mesh, _reduce_scatter)
+
+    squeeze = V_local.ndim == 1
+    if squeeze:
+        V_local = V_local[:, None]
+    overlap = geom.overlap if overlap is None else overlap
+    mesh = _mesh(geom)
+    ppass = fused_pass_or_none(kernel, params)
+    tile = plan.tile
+    dev = str(X.device)
+
+    mask = _chunk_mask(geom, V_local.dtype)
+    Vk = V_local if mask is None else V_local * mask[:, None]
+    i = _linear_index(mesh, geom.row_axes)
+    T_rloc = geom.rows_local // tile
+    r0, r1 = i * T_rloc, (i + 1) * T_rloc
+    x_rows = X[i * geom.rows_local:(i + 1) * geom.rows_local]
+
+    if geom.col_axes or overlap:
+        csrs = _chunk_csrs(plan, geom.d_row * geom.d_col, r0, r1, dev)
+
+        def chunk_fn(c, v, partial):
+            x_c = X[c * geom.n_local:(c + 1) * geom.n_local]
+            out = _local_rows_kmvm(kernel, params, x_rows, x_c, v, ppass,
+                                   *csrs[c], tile, compute_dtype)
+            return out if partial is None else partial + out
+
+        partial_rows = _chunked_contraction(geom, chunk_fn, Vk,
+                                            overlap=overlap)
+        out = _reduce_scatter(mesh, geom.col_axes,
+                              partial_rows.to(V_local.dtype))
+    else:
+        v_full = _all_gather(mesh, geom.row_axes, Vk)
+        out = _local_rows_kmvm(kernel, params, x_rows, X, v_full, ppass,
+                               *_rows_csr(plan, r0, r1, dev), tile,
+                               compute_dtype).to(V_local.dtype)
+    if mask is not None:
+        out = out * mask[:, None]
+    if add_noise:
+        out = out + noise_variance(params, noise_floor) * V_local
+    return out[:, 0] if squeeze else out
+
+
+def validate_dist_plan(geom, plan: SparsePlan) -> None:
+    """The sharded-composition contract (raise early, at config time)."""
+    if not np.array_equal(plan.perm, np.arange(plan.n)):
+        raise ValueError(
+            "distributed blocksparse needs PRE-SORTED data: Morton-sort "
+            "X/y first and build the plan with assume_sorted=True")
+    if plan.n != geom.n_padded or plan.n_pad != plan.n:
+        raise ValueError(
+            f"plan covers n={plan.n} rows but the geometry lays out "
+            f"{geom.n_padded} (pad X to geom.n_padded with "
+            f"distributed.pad_to_geometry, then build the plan on the "
+            f"padded data so it holds whole tiles)")
+    if geom.n_local % plan.tile:
+        raise ValueError(
+            f"per-rank chunk ({geom.n_local}) must hold whole plan tiles "
+            f"({plan.tile}): build the geometry with "
+            f"tile_multiple={plan.tile}")

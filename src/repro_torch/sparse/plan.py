@@ -33,9 +33,11 @@ all-active mask.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -355,6 +357,47 @@ def build_plan(kernel, X, params, *, tile: int = 256, margin: float = 0.1,
         row_cols=row_cols, row_valid=row_valid,
         support=support, support_planned=support_planned, margin=margin,
         params_ref=params_ref)
+
+
+class ChunkSlicedPlan(NamedTuple):
+    """`SparsePlan.row_cols` sliced by global vector chunk, the distributed
+    engine's view of a plan on a mesh: entry [r, c, :] lists the IN-CHUNK
+    col-tile indices active against row tile r (ascending), `valid` the
+    occupancy; `kmax` is the max per-(row, chunk) degree."""
+
+    cols: np.ndarray   # (T, n_chunks, kmax) int32 in-chunk col-tile ids
+    valid: np.ndarray  # (T, n_chunks, kmax) bool
+    kmax: int
+
+
+@functools.lru_cache(maxsize=32)
+def chunk_sliced_plan(plan: SparsePlan, n_chunks: int) -> ChunkSlicedPlan:
+    """Slice plan.row_cols by vector chunk (cached on the plan digest).
+    Requires whole tiles per chunk."""
+    T = plan.num_tiles
+    if T % n_chunks:
+        raise ValueError(
+            f"plan tiles ({T}) must divide the chunk grid ({n_chunks}); "
+            f"build the geometry with tile_multiple=plan.tile")
+    t_chunk = T // n_chunks
+    counts = np.zeros((T, n_chunks), np.int64)
+    cid = plan.row_cols // t_chunk
+    for r in range(T):
+        sel = cid[r][plan.row_valid[r]]
+        np.add.at(counts[r], sel, 1)
+    kmax = max(int(counts.max()), 1)
+    cols = np.zeros((T, n_chunks, kmax), np.int32)
+    valid = np.zeros((T, n_chunks, kmax), bool)
+    fill = np.zeros((T, n_chunks), np.int64)
+    for r in range(T):
+        for c, v in zip(plan.row_cols[r], plan.row_valid[r]):
+            if not v:
+                continue
+            ch, k = int(c) // t_chunk, fill[r, int(c) // t_chunk]
+            cols[r, ch, k] = int(c) % t_chunk
+            valid[r, ch, k] = True
+            fill[r, ch] += 1
+    return ChunkSlicedPlan(cols=cols, valid=valid, kmax=kmax)
 
 
 def needs_replan(plan: SparsePlan, params, threshold: float | None = None,

@@ -1,2 +1,3 @@
-"""repro_torch.train — the checkpoint layout, the warm-started solve engine
-(`solver_state`) and exact-GP hyperparameter training (`gp_trainer`)."""
+"""repro_torch.train — the checkpoint layout, the warm-started solve engines
+(`solver_state`: `WarmStartEngine` on one device, `DistWarmStartEngine` on a
+mesh) and exact-GP hyperparameter training (`gp_trainer`)."""

@@ -1,6 +1,6 @@
 """Warm-started training engine: solver state amortized across optimizer steps.
 
-The counterpart of `repro.train.solver_state` (single device). Successive
+The counterpart of `repro.train.solver_state`. Successive
 optimizer steps solve nearly identical systems, so the engine carries:
 
   * the previous step's converged solutions, which seed mBCG (`x0`);
@@ -14,8 +14,11 @@ gradient contracts converged solves, so warm steps change iteration counts,
 not the estimator. Warm probe iterates do not re-estimate the SLQ
 log-determinant, so warm steps carry the estimate of the last refresh (the
 reported loss value is O(drift)-stale between refreshes; the gradients are
-current). The sharded engine's `DistWarmStartEngine` belongs to the
-distributed slice.
+current).
+
+Two engines share the schedule and the telemetry (`_WarmEngineBase`):
+`WarmStartEngine` on one device and `DistWarmStartEngine` over the sharded
+operator of `repro_torch.core.distributed`, run on every rank in step.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mll import (
+    MLLAux,
     MLLConfig,
     operator_mll_backward,
     operator_mll_forward,
@@ -98,22 +102,26 @@ def param_drift(ref, params) -> float:
     return drift
 
 
-class WarmStartEngine:
-    """Stateful MLL value + gradient engine on one device.
+class _WarmEngineBase:
+    """The refresh schedule, state bookkeeping and per-step telemetry shared
+    by both engines. Subclasses provide `_dispatch(mode, X, y, params,
+    generator, probes)` returning (loss, MLLAux, g_params, new_state).
 
-    step() returns (loss, aux, g_params) with loss = -mll/n, the gradients
-    assembled by `operator_mll_backward`, and appends a telemetry record
-    (mode "cold" | "refresh" | "warm", refreshed, cg_iters, iters_per_rhs,
-    drift, seconds) to `telemetry`. A disabled engine runs every step cold.
+    step() returns (loss, aux, g_params) with loss = -mll/n and appends a
+    telemetry record (mode "cold" | "refresh" | "warm", refreshed, cg_iters,
+    iters_per_rhs, drift, seconds) to `telemetry`. A disabled engine runs
+    every step cold.
     """
 
-    def __init__(self, cfg: MLLConfig, warm: WarmStartConfig | None = None):
-        self.cfg = cfg
+    def __init__(self, warm: WarmStartConfig | None = None):
         self.warm = warm or WarmStartConfig()
-        self.state: SolverState | None = None
+        self.state = None
         self.telemetry: list[dict] = []
         self._params_ref = None
         self._steps_since_refresh = 0
+
+    def _dispatch(self, mode, X, y, params, generator, probes):
+        raise NotImplementedError
 
     def _mode(self, params) -> tuple[str, float]:
         if self.state is None or not self.warm.enabled:
@@ -125,7 +133,43 @@ class WarmStartEngine:
             return "refresh", drift
         return "warm", drift
 
-    def _run(self, mode, X, y, params, generator, probes=None):
+    def step(self, X, y, params, generator: torch.Generator | None = None, *,
+             probes: torch.Tensor | None = None):
+        """One MLL evaluation: (loss, MLLAux, g_params). `probes` injects
+        the probe block of a cold or refresh step (else it is drawn from
+        `generator`); warm steps reuse the carried block."""
+        t0 = time.perf_counter()
+        mode, drift = self._mode(params)
+        loss, aux, g_params, state = self._dispatch(
+            mode, X, y, params, generator, None if mode == "warm" else probes)
+        iters = aux.cg_iterations.cpu().numpy()
+        if self.warm.enabled:
+            self.state = state
+            if mode != "warm":
+                self._params_ref = params
+                self._steps_since_refresh = 0
+            self._steps_since_refresh += 1
+        self.telemetry.append({
+            "mode": mode, "refreshed": mode != "warm",
+            "cg_iters": int(iters.sum()), "iters_per_rhs": iters.tolist(),
+            "drift": float(drift), "seconds": time.perf_counter() - t0})
+        return loss, aux, g_params
+
+    def reset(self):
+        self.state = None
+        self._params_ref = None
+        self._steps_since_refresh = 0
+
+
+class WarmStartEngine(_WarmEngineBase):
+    """Stateful MLL value + gradient engine on one device; the gradients are
+    assembled by `operator_mll_backward`."""
+
+    def __init__(self, cfg: MLLConfig, warm: WarmStartConfig | None = None):
+        super().__init__(warm)
+        self.cfg = cfg
+
+    def _dispatch(self, mode, X, y, params, generator, probes):
         cfg = self.cfg
         op = make_operator(cfg.operator_config(), X, params, device=X.device)
         n = X.shape[0]
@@ -159,25 +203,38 @@ class WarmStartEngine:
                                 logdet=aux.logdet)
         return -value / n, aux, g_params, new_state
 
-    def step(self, X, y, params, generator: torch.Generator | None = None, *,
-             probes: torch.Tensor | None = None):
-        """One MLL evaluation: (loss, MLLAux, g_params). `probes` injects
-        the probe block of a cold or refresh step (else it is drawn from
-        `generator`); warm steps reuse the carried block."""
-        t0 = time.perf_counter()
-        mode, drift = self._mode(params)
-        loss, aux, g_params, state = self._run(
-            mode, X, y, params, generator,
-            probes=None if mode == "warm" else probes)
-        iters = aux.cg_iterations.cpu().numpy()
-        if self.warm.enabled:
-            self.state = state
-            if mode != "warm":
-                self._params_ref = params
-                self._steps_since_refresh = 0
-            self._steps_since_refresh += 1
-        self.telemetry.append({
-            "mode": mode, "refreshed": mode != "warm",
-            "cg_iters": int(iters.sum()), "iters_per_rhs": iters.tolist(),
-            "drift": float(drift), "seconds": time.perf_counter() - t0})
-        return loss, aux, g_params
+
+class DistWarmStartEngine(_WarmEngineBase):
+    """The same engine over the sharded backend, run on every rank in step.
+
+    Wraps `repro_torch.core.distributed.make_warm_mll_step`; X is the full
+    padded array and y this rank's chunk (`replicate` / `shard_vector`),
+    `probes` this rank's probe chunk; the state is a `DistSolveState`, and
+    the (logdet, quad, cg_iterations, rel_residual) aux of the distributed
+    MLL is repacked into MLLAux.
+    """
+
+    def __init__(self, mesh, geom, cfg, warm: WarmStartConfig | None = None):
+        from repro_torch.core.distributed import make_warm_mll_step, replicate
+
+        super().__init__(warm)
+        self.mesh = mesh
+        self.geom = geom
+        self.cfg = cfg
+        self._replicate = replicate
+        self._fns = make_warm_mll_step(
+            mesh, geom, cfg, warm_min_iters=self.warm.warm_min_iters)
+
+    def _dispatch(self, mode, X, y, params, generator, probes):
+        params_r = self._replicate(self.mesh, params)
+        if mode == "cold":
+            out = self._fns.cold(X, y, params_r, generator, probes)
+        elif mode == "refresh":
+            out = self._fns.refresh(X, y, params_r, generator, self.state,
+                                    probes)
+        else:
+            out = self._fns.warm(X, y, params_r, generator, self.state)
+        loss, aux_t, g_params, state = out
+        aux = MLLAux(logdet=aux_t[0], quad=aux_t[1], cg_iterations=aux_t[2],
+                     rel_residual=aux_t[3])
+        return loss, aux, g_params, state

@@ -139,6 +139,87 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                         torch.ones(10, device=cuda))
 
 
+# ---------------------------------------------------------------------------
+# B3: the chunk-accumulate step (kmvm_fused_chunk)
+# ---------------------------------------------------------------------------
+
+CHUNKS = (             # (m, column chunk sizes): ragged m, 64..4096 columns
+    (100, (64, 64, 128)),
+    (257, (4096, 1000)),
+    (33, (640, 77)),
+)
+
+
+def _chunk_walk(fn, components, Xi, Xj, V, scalars, sizes):
+    acc = torch.zeros((Xi.shape[0], V.shape[1]), dtype=torch.float32,
+                      device=Xi.device)
+    j = 0
+    for nc in sizes:
+        out = fn(components, Xi, Xj[j:j + nc].contiguous(),
+                 V[j:j + nc].contiguous(), scalars, acc)
+        assert out is acc
+        j += nc
+    return acc
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("t", (1, 9, 128))
+@pytest.mark.parametrize("case", CHUNKS, ids=lambda c: f"m{c[0]}-{'+'.join(map(str, c[1]))}")
+@pytest.mark.parametrize("spec", ("matern32", "0.5*rbf + matern32"))
+def test_kmvm_chunk_kernel_matches_plain(cuda, spec, case, t, dtype):
+    components, scal = SPECS[spec]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    m, sizes = case
+    Xi, Xj, V, _, _ = _inputs(m, sum(sizes), 9, t, dtype, cuda, seed=len(sizes))
+    before = kmvm.launch_counts["kmvm_chunk"]
+    out = _chunk_walk(kmvm.kmvm_fused_chunk, components, Xi, Xj, V, scalars, sizes)
+    torch.cuda.synchronize()
+    assert kmvm.launch_counts["kmvm_chunk"] == before + len(sizes)
+    ref = _chunk_walk(kmvm.kmvm_chunk_plain, components, Xi, Xj, V, scalars, sizes)
+    assert _rel_err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("t", (1, 9, 128))
+def test_kmvm_chunk_walk_equals_one_b1_launch(cuda, t, dtype):
+    """Chunks of whole 64-column tiles walked through the accumulator give
+    the bits of one B1 launch over the same n <= 4096 columns at t > 1 (B1
+    runs one column split there); at t = 1 B1's in-block four-way column
+    split regroups the sum, so a multi-chunk walk agrees within the
+    tolerance and a single chunk bit for bit."""
+    components, scal = SPECS["matern32"]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    Xi, Xj, V, _, _ = _inputs(300, 4096, 9, t, dtype, cuda, seed=5)
+    full = kmvm.kmvm_fused(components, Xi, Xj, V, scalars)
+    one = _chunk_walk(kmvm.kmvm_fused_chunk, components, Xi, Xj, V, scalars, (4096,))
+    walk = _chunk_walk(kmvm.kmvm_fused_chunk, components, Xi, Xj, V, scalars,
+                       (64, 1024, 2048, 960))
+    torch.cuda.synchronize()
+    assert torch.equal(one, full)
+    if t > 1:
+        assert torch.equal(walk, full)
+    else:
+        assert _rel_err(walk, full) <= TOL[dtype]
+
+
+def test_cuda_tensor_never_reaches_chunk_plain(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(kmvm, "kmvm_plain", boom)
+    monkeypatch.setattr(kmvm, "kmvm_chunk_plain", boom)
+    components, scal = SPECS["matern32"]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    Xi, Xj, V, _, _ = _inputs(40, 50, 9, 3, torch.float32, cuda)
+    acc = torch.zeros((40, 3), device=cuda)
+    kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc.double())
+    with pytest.raises(ValueError):
+        kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc[:, :2])
+
+
 def test_serving_path_on_card_matches_cpu(cuda):
     """fit_posterior + PredictionEngine on the pallas backend: the card (the
     kernels) against the CPU (their plain versions), same inputs."""
@@ -162,7 +243,7 @@ def test_serving_path_on_card_matches_cpu(cuda):
         mean, var = eng.predict(X[:300] + 0.1)
         out[str(dev)] = (mean.cpu(), var.cpu(), dict(kmvm.launch_counts))
     (m0, v0_, c0), (m1, v1, c1) = out["cpu"], out[str(cuda)]
-    assert c0 == {"kmvm": 0, "kmvm_dots": 0}
+    assert c0 == {"kmvm": 0, "kmvm_dots": 0, "kmvm_chunk": 0}
     assert c1["kmvm"] > 0 and c1["kmvm_dots"] > 0
     assert _rel_err(m1, m0) <= 1e-3
     assert _rel_err(v1, v0_) <= 1e-3

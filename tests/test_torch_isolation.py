@@ -5,8 +5,9 @@
 * With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
 * Entry points with no `device` raise when there is no card, rather than
   running on the CPU (the operators, the posterior fit and engine, the
-  launcher, training: `fit_exact_gp`, `exact_mll`, and the blocksparse
-  backend).
+  launchers, training: `fit_exact_gp`, `exact_mll`, the blocksparse
+  backend, and the distributed engine: `init_distributed`, `make_mesh`,
+  `make_host_mesh`, the sharded operator).
 * A non-CPU tensor handed to a kernel wrapper never reaches the plain
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
 """
@@ -55,6 +56,8 @@ def test_port_runs_with_jax_unimportable():
         "from repro_torch.serve import PredictionEngine, fit_posterior\n"
         "import repro_torch.launch.serve_gp, repro_torch.interop\n"
         "import repro_torch.train.gp_trainer, repro_torch.sparse\n"
+        "import repro_torch.core.distributed, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh\n"
         "X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)\n"
         "op = make_operator(OperatorConfig(backend='pallas'), X, init_params(),"
         " device='cpu')\n"
@@ -140,3 +143,45 @@ def test_non_cpu_tensor_never_reaches_blocksparse_plain(monkeypatch):
         kmvm_sparse.kmvm_blocksparse((("rbf",),), X, X, V,
                                      torch.empty((2,), **meta), ptr, ptr,
                                      tile=8)
+
+
+def test_distributed_entry_points_raise_without_a_card(monkeypatch):
+    """The launcher without --device, the mesh constructors and the sharded
+    operator refuse to run on the CPU when no card is there, before any
+    process group is joined."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "gp-exact-1m", "--gp-n", "16", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_distributed()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_host_mesh()
+    assert not dist.is_initialized()
+    stub = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.zeros((1, 1)))
+    geom = D.make_geometry(stub, 8, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_operator(D.DistMLLConfig().operator_config(geom),
+                      np.zeros((8, 2), np.float32), init_params())
+
+
+def test_non_cpu_tensor_never_reaches_chunk_plain(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a non-CPU tensor")
+
+    monkeypatch.setattr(kmvm, "kmvm_plain", boom)
+    monkeypatch.setattr(kmvm, "kmvm_chunk_plain", boom)
+    meta = {"device": "meta"}
+    X, V = torch.empty((8, 3), **meta), torch.empty((8, 1), **meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kmvm.kmvm_fused_chunk((("rbf",),), X, X, V, torch.empty((2,), **meta),
+                              torch.empty((8, 1), **meta))

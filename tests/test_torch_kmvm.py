@@ -176,3 +176,63 @@ def test_wrapper_limits():
         kmvm._spec_array((("linear",),))
     assert kmvm.kmvm_fused((("rbf",),), X, X, torch.ones((4, 1)),
                            torch.tensor([1.0, 1.0])).shape == (4, 1)
+
+
+# ---------------------------------------------------------------------------
+# B3: the chunk-accumulate step (the distributed ring's per-chunk launch)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("t", (1, 9, 128))
+@pytest.mark.parametrize("n_chunks", (2, 3, 4))
+def test_kmvm_chunk_plain_matches_pallas_chunk(n_chunks, t, dtype):
+    """A walk of `kmvm_chunk_plain` over 2-4 column chunks against the
+    reference's `kmvm_pallas_chunk` walk (interpret mode), same operands,
+    the accumulator carried from chunk to chunk."""
+    rng = np.random.default_rng(10 + n_chunks)
+    m, nc, d = 64, 32, 5
+    n = n_chunks * nc
+    Xi, Xj, V = (rng.normal(size=s).astype(np.float32) * f
+                 for s, f in (((m, d), 0.6), ((n, d), 0.6), ((n, t), 1.0)))
+    components, scalars = (("rbf",), ("matern32",)), [1.0, 1.0, 0.7, 1.6]
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    acc_ref = jnp.zeros((m, t), jnp.float32)
+    acc = torch.zeros((m, t), dtype=torch.float32)
+    before = dict(kmvm.launch_counts)
+    for s in range(n_chunks):
+        sl = slice(s * nc, (s + 1) * nc)
+        acc_ref = ref_kmvm.kmvm_pallas_chunk(
+            components, jnp.asarray(Xi, jdt), jnp.asarray(Xj[sl], jdt),
+            jnp.asarray(V[sl], jdt), jnp.asarray([scalars], jnp.float32),
+            acc_ref, bm=32, bn=32, interpret=True, compute_dtype=dtype)
+        out = kmvm.kmvm_fused_chunk(components, T(Xi).to(tdt), T(Xj[sl]).to(tdt),
+                                    T(V[sl]).to(tdt), torch.tensor(scalars), acc)
+        assert out is acc
+    assert kmvm.launch_counts == before  # the plain version counts nothing
+    acc_ref = np.asarray(acc_ref)
+    tol = 5e-2 if dtype == "bfloat16" else MAT_TOL["float32"]
+    np.testing.assert_allclose(acc.numpy(), acc_ref, rtol=tol,
+                               atol=tol * np.abs(acc_ref).max())
+
+
+@pytest.mark.parametrize("kernel", ("matern32", "0.5*rbf + matern32", "rbf * linear"))
+def test_chunk_walk_matches_single_launch(kernel):
+    """`ops.kmvm_block_acc` walked over column chunks equals the single
+    `kmvm_block` over all columns (fused passes, linear terms and
+    dense-fallback slabs alike) within the fp32 tolerance, and a single
+    chunk from a zero accumulator equals it bit for bit."""
+    n, d = 96, 5
+    Xi, Xj, V, _, _, p = _problem(kernel, n, d, t=9, seed=3, m=70)
+    full = ops.kmvm_block(kernel, T(Xi), T(Xj), T(V), p)
+    one = ops.kmvm_block_acc(kernel, T(Xi), T(Xj), T(V), p,
+                             torch.zeros((70, 9)), row_block=32)
+    acc = torch.zeros((70, 9))
+    for j in range(0, n, 32):
+        ops.kmvm_block_acc(kernel, T(Xi), T(Xj[j:j + 32]), T(V[j:j + 32]), p,
+                           acc, row_block=32)
+    if "linear" not in kernel:
+        assert torch.equal(one, full)
+    tol = MAT_TOL["float32"]
+    np.testing.assert_allclose(acc.numpy(), full.numpy(), rtol=tol,
+                               atol=tol * full.abs().max().item())

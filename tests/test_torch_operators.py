@@ -114,9 +114,10 @@ def test_config_fields_match_reference():
 
 @pytest.mark.parametrize("backend", ("sharded", "blocksparse", "nope"))
 def test_unported_backends_raise(backend):
-    """What is not ported raises: the sharded backend, an unknown key, and
-    blocksparse's distributed composition (a mesh geometry); blocksparse on
-    one device is ported (tests/test_torch_sparse.py)."""
+    """What no backend serves raises: the sharded backend without its mesh
+    geometry (it is ported: tests/test_torch_distributed.py), an unknown
+    key, and a mesh geometry on a single-device backend (blocksparse's
+    distributed composition runs inside the sharded backend)."""
     X = np.zeros((8, 2), np.float32)
     p = params_from_numpy(jax.tree.map(np.asarray, ref_init("rbf")))
     geom = object() if backend == "blocksparse" else None
