@@ -7,7 +7,10 @@ caught and skipped):
 
 1. Device: name, count, torch/CUDA versions, nvidia-smi name and power limit.
 2. Build: compile the CUDA kernels from `src/repro_torch/kernels/csrc/`
-   with nvcc (sm_90a); print the build seconds and the ptxas lines.
+   with nvcc (sm_90a); print the build seconds, then for each fp32
+   instance at t-chunks 1 and 16 its ptxas registers, stack and spill and
+   its SASS counts (`cuobjdump -sass`: LDL/STL, MUFU, barriers, and the
+   instructions and local-memory accesses of the entry loop).
 3. Kernels against their plain PyTorch versions on the card: B1
    (`kmvm_fused`) and B2 (`kmvm_fused_dots`) on fp32 and bf16, five kernel
    kinds, ragged m and n, d in {9, 385}, t in {1, 7, 128}, and the main-path
@@ -15,7 +18,13 @@ caught and skipped):
    (fp32) and 5e-2 (bf16) relative to max|out|, as the reference's kernel
    tests use — only the summation order differs. Then each kernel is timed
    with CUDA events at the main-path shapes beside its plain version and
-   its bound.
+   its bound: B1 and B2 at (2^16, 2^16, 9, 1) (serving) and (2^17, 2^17,
+   9, 1) (the distributed path's single-card Lanczos and CG steps), B1 at
+   a 1024-row prediction chunk (t = 128). Last, the per-entry cost table:
+   B1 at (2^16, 2^16, t = 1) for d in {2, 9} and the specs rbf, matern32
+   and matern32 * wendland2, plus matern32 at d = 9, t = 9, in ps per
+   kernel entry (the differences give the cost of one feature, of one
+   epilogue factor and of K @ V).
 4. Serve: the port's `serve_gp` flow in-process — the houseelectric
    analogue (d = 9) at n = 2^16, matern32 on the `pallas` backend in fp32 at
    fixed hyperparameters (lengthscale sqrt(d), outputscale 1, noise 0.01),
@@ -34,8 +43,10 @@ caught and skipped):
    {1, 9, 128}, fp32 and bf16, specs `matern32 * wendland2`, `wendland4`,
    `rbf * wendland2 + matern32 * wendland4` and the non-compact `matern32`
    on its all-active plan, where B4 must also equal B1 within the same
-   tolerance. Then B4 is timed at the spatial path's shape (n = 2^18, tile
-   256, t = 1 and t = 9) beside its plain version and its bound.
+   tolerance; each case launched longest row first (the plan's order) must
+   equal the launch in plan order bit for bit. Then B4 is timed at the
+   spatial path's shape (n = 2^18, tile 256, t = 1 and t = 9, the plan's
+   launch order) beside its plain version and its bound.
 6. Spatial (the `examples/spatial_gp.py` configuration): the clustered 2-D
    field (32 stations, sigma 0.03, dataset seed 0) at n = 2^18 training
    points, `matern32 * wendland2` from noise 0.3 and radius 0.15 on the
@@ -65,7 +76,7 @@ caught and skipped):
    4096, t in {1, 9, 128}, fp32 and bf16, two specs; and a walk over
    chunks of whole 64-column tiles against one B1 launch over the same
    n = 4096 columns, bit for bit at t = 9 and t = 128 and for a single
-   chunk at t = 1 (at t = 1 B1's in-block four-way column split regroups a
+   chunk at t = 1 (at t = 1 the final 16-thread tree of each row regroups a
    multi-chunk walk's sum, held to the tolerance instead). Then B3 is timed
    at the shape of one ring step of eight cards at n = 2^20 (rows = chunk =
    2^17, d = 9, t = 1 and t = 9) beside its plain version and its bound.
@@ -123,6 +134,7 @@ CROSSCHECK_N = 1 << 13
 DIST_GP_N = 98304          # n_train = 4/9 of 3 * DIST_GP_N = 2^17
 DIST_STEPS = 3
 RING_STEP = 1 << 17        # rows = chunk of one ring step, 8 cards at 2^20
+DIST_N = 1 << 17           # rows of the distributed path's single-card pass
 DEV = "cuda"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -151,22 +163,22 @@ def phase_device() -> str:
     return name
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel; print the build time, then the registers, stack
+    and spill of each fp32 instance (ptxas) and its SASS counts."""
     from repro_torch.kernels import build
 
     info = build.build(force=True)
     log(f"[build] nvcc {info['seconds']:.1f} s -> {info['libs']}")
-    for line in info["ptxas"]:
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line}")
+    return binary_summary(info)
 
 
 def _case_inputs(m, n, d, t, dtype, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEV).manual_seed(seed)
     scale = 2.0 / math.sqrt(d)
 
     def arr(*shape, s=1.0):
-        return s * torch.randn(shape, generator=g, device="cuda")
+        return s * torch.randn(shape, generator=g, device=DEV)
 
     return (arr(m, d, s=scale).to(dtype), arr(n, d, s=scale).to(dtype),
             arr(n, t).to(dtype), arr(m, t), arr(m, t))
@@ -199,6 +211,10 @@ def _compare(kmvm, components, scalars, Xi, Xj, V, Vrow, R):
     return e1, e2, a1, a2
 
 
+def _rel(a, b) -> float:
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
 def _time_ms(fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -227,13 +243,176 @@ def _bound_ms(components, m, n, d, t, itemsize, dots: bool,
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# the per-entry cost table: B1 at one launch shape, (d, spec, t) per row;
+# the differences give one feature's, one epilogue factor's and K @ V's cost
+COST_N = 1 << 16
+COST_SPECS = {"rbf": ((("rbf",),), [1.0, 1.0]),
+              "matern32": ((("matern32",),), [1.0, 1.0]),
+              "matern32 * wendland2": ((("matern32", "wendland2"),),
+                                       [1.0, 1.0, 0.25])}
+COST_CASES = tuple((d, spec, 1) for d in (2, 9) for spec in COST_SPECS) + (
+    (9, "matern32", 9),)
+
+
+def entry_cost_table() -> list:
+    """ps per kernel entry of B1 at (COST_N, COST_N, d, t) for each case of
+    COST_CASES (inputs N(0, 1/d) per feature, so distances are O(1))."""
+    from repro_torch.kernels import kmvm
+
+    rows = []
+    for d, spec, t in COST_CASES:
+        components, scal = COST_SPECS[spec]
+        scalars = torch.tensor(scal, dtype=torch.float32, device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(17)
+        X = torch.randn((COST_N, d), generator=g, device=DEV) / math.sqrt(d)
+        V = torch.randn((COST_N, t), generator=g, device=DEV)
+        ms = _time_ms(lambda: kmvm.kmvm_fused(components, X, X, V, scalars), 3)
+        ps = ms * 1e9 / COST_N**2
+        rows.append({"d": d, "spec": spec, "t": t, "ms": ms, "ps_per_entry": ps})
+        log(f"[cost] B1 ({COST_N}, {COST_N}, d {d}, t {t}) {spec}: {ms:.3f} ms, "
+            f"{ps:.3f} ps per entry")
+    return rows
+
+
+def _tool(name: str) -> str | None:
+    """A CUDA binary tool: on PATH, in the toolkit, or in Triton's package."""
+    found = shutil.which(name)
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+    if os.path.exists(cand):
+        return cand
+    try:
+        import triton
+    except ImportError:
+        return None
+    cand = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia",
+                        "bin", name)
+    return cand if os.path.exists(cand) else None
+
+
+def _demangle(names: list) -> dict:
+    filt = _tool("cu++filt") or shutil.which("c++filt")
+    if not filt or not names:
+        return {n: n for n in names}
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def _short(fn: str) -> str:
+    """'kmvm_kernel<float, 1>' from a demangled template instance."""
+    for junk in ("(anonymous namespace)::", "<unnamed>::", "(int)", "void "):
+        fn = fn.replace(junk, "")
+    return fn.replace("__nv_bfloat16", "bf16").split("(")[0].replace(" ", "")
+
+
+def _ptxas_table(lines: list) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    nvcc's -Xptxas -v lines."""
+    import re
+
+    table, cur = {}, None
+    for ln in lines:
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            table.setdefault(cur, {})
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            table.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            table[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[cur]["registers"] = int(m.group(1))
+    names = _demangle(list(table))
+    return {_short(names[k]): v for k, v in table.items() if "kernel" in k}
+
+
+def _sass_table(libs: list) -> dict:
+    """Per kernel of the fp32 instances: SASS instructions, LDL/STL, MUFU and
+    BAR counts, and the innermost and outermost loops holding MUFU ops (a
+    loop: from a backward branch's target to the branch)."""
+    import re
+
+    tool = _tool("cuobjdump")
+    if tool is None:
+        return {"error": "cuobjdump not found"}
+    funcs = {}
+    for lib in libs:
+        text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, timeout=300).stdout
+        cur = None
+        for ln in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", ln)
+            if m:
+                cur = m.group(1)
+                funcs[cur] = []
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+            if cur is not None and m:
+                funcs[cur].append((int(m.group(1), 16), m.group(2).strip()))
+    names = _demangle(list(funcs))
+    out = {}
+    for raw, ins in funcs.items():
+        name = _short(names[raw])
+        if "bf16" in name or not re.search(r"<float,(1|16)(,\d+)?>", name):
+            continue
+
+        def count(sub, lo=-1, hi=1 << 62):
+            return sum(1 for a, s in ins if lo <= a <= hi and re.search(sub, s))
+
+        loops = []
+        for a, s in ins:
+            m = re.search(r"\bBRA\s+(?:`?\(?)(0x[0-9a-f]+)", s)
+            if m and int(m.group(1), 16) < a:
+                lo = int(m.group(1), 16)
+                loops.append((a - lo, lo, a))
+        def summary(lo, hi):
+            return {"instructions": count(r".", lo, hi),
+                    "mufu": count(r"\bMUFU\b", lo, hi),
+                    "ldl_stl": count(r"\b(LDL|STL)\b", lo, hi),
+                    "bar": count(r"\bBAR\b", lo, hi)}
+
+        with_mufu = [(lo, hi) for _, lo, hi in sorted(loops)
+                     if count(r"\bMUFU\b", lo, hi)]
+        out[name] = {"instructions": len(ins), "ldl": count(r"\bLDL\b"),
+                     "stl": count(r"\bSTL\b"), "mufu": count(r"\bMUFU\b"),
+                     "bar": count(r"\bBAR\b"),
+                     # innermost loop with MUFU ops: the per-entry code;
+                     # outermost: the walk over column chunks
+                     "entry_loop": summary(*with_mufu[0]) if with_mufu else None,
+                     "chunk_loop": summary(*with_mufu[-1]) if with_mufu else None}
+    return out
+
+
+def binary_summary(info: dict) -> dict:
+    """ptxas registers/stack/spill and the SASS counts of the fp32 B1, B2,
+    B3 and B4 instances at t-chunks 1 and 16."""
+    ptxas = {k: v for k, v in _ptxas_table(info["ptxas"]).items()
+             if "bf16" not in k}
+    sass = _sass_table(info["libs"])
+    for name in sorted(set(ptxas) | set(sass)):
+        log(f"[binary] {name}: ptxas {ptxas.get(name)}; sass {sass.get(name)}")
+    return {"ptxas": ptxas, "sass": sass}
+
+
 def phase_kernels(X_train) -> dict:
     from repro_torch.kernels import kmvm
 
     worst = {"kmvm": 0.0, "kmvm_dots": 0.0}
     cases = 0
     for spec, (components, scal) in SPECS.items():
-        scalars = torch.tensor(scal, dtype=torch.float32, device="cuda")
+        scalars = torch.tensor(scal, dtype=torch.float32, device=DEV)
         for dtype in (torch.float32, torch.bfloat16):
             for seed, (m, n, d, t) in enumerate(
                     ((100, 130, 9, 1), (257, 300, 9, 7), (64, 1000, 9, 128),
@@ -255,13 +434,13 @@ def phase_kernels(X_train) -> dict:
 
     # the main path: matern32 pre-scaled by lengthscale sqrt(d), weight 1
     components = (("matern32",),)
-    scalars = torch.tensor([1.0, 1.0], dtype=torch.float32, device="cuda")
+    scalars = torch.tensor([1.0, 1.0], dtype=torch.float32, device=DEV)
     n, d = X_train.shape
     Xs = (X_train / math.sqrt(d)).contiguous()
-    g = torch.Generator(device="cuda").manual_seed(7)
-    v1 = torch.randn((n, 1), generator=g, device="cuda")
-    v128 = torch.randn((n, 128), generator=g, device="cuda")
-    r1 = torch.randn((n, 1), generator=g, device="cuda")
+    g = torch.Generator(device=DEV).manual_seed(7)
+    v1 = torch.randn((n, 1), generator=g, device=DEV)
+    v128 = torch.randn((n, 128), generator=g, device=DEV)
+    r1 = torch.randn((n, 1), generator=g, device=DEV)
     abs_err = {}
     for t, V in ((1, v1), (128, v128)):
         e1, e2, a1, a2 = _compare(kmvm, components, scalars, Xs[:2048], Xs, V,
@@ -273,31 +452,57 @@ def phase_kernels(X_train) -> dict:
         log(f"[kernels] main path (2048, {n}, {d}, {t}) fp32: B1 rel {e1:.2e} "
             f"abs {a1:.2e}, B2 rel {e2:.2e} abs {a2:.2e}")
 
+    # B1 and B2 at the serving shape, B1 at a prediction chunk, then both at
+    # the distributed path's single-card shape (2^17 rows of d = 9: its
+    # Lanczos pass and the fit's CG steps; random rows of the same scale)
+    rows = time_square(components, scalars, Xs, v1, r1, plain_reps=2)
     pred = Xs[:1024].contiguous()
-    timings = {
-        "kmvm_dots": [((n, n, d, 1), lambda: kmvm.kmvm_fused_dots(
-            components, Xs, Xs, v1, v1, r1, scalars), lambda: kmvm.kmvm_dots_plain(
-            components, Xs, Xs, v1, v1, r1, scalars), 3, 2)],
-        "kmvm": [((n, n, d, 1), lambda: kmvm.kmvm_fused(
-                     components, Xs, Xs, v1, scalars), lambda: kmvm.kmvm_plain(
-                     components, Xs, Xs, v1, scalars), 3, 2),
-                 ((1024, n, d, 128), lambda: kmvm.kmvm_fused(
-                     components, pred, Xs, v128, scalars), lambda: kmvm.kmvm_plain(
-                     components, pred, Xs, v128, scalars), 10, 5)],
-    }
-    rows = {}
-    for name, entries in timings.items():
-        rows[name] = []
-        for shape, kern, plain, reps, plain_reps in entries:
-            ms = _time_ms(kern, reps)
-            plain_ms = _time_ms(plain, plain_reps)
-            bound, bound_by = _bound_ms(components, *shape, 4, name == "kmvm_dots")
-            rows[name].append({"shape": list(shape), "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": bound,
-                               "bound_by": bound_by})
-            log(f"[kernels] time {name} {shape}: {ms:.3f} ms (bound {bound:.3f} "
-                f"ms, {bound / ms:.1%} of it), plain {plain_ms:.3f} ms")
-    return {"rows": rows, "abs_err": abs_err, "worst": worst}
+    rows["kmvm"].append(_time_row(
+        "kmvm", (1024, n, d, 128), components,
+        lambda: kmvm.kmvm_fused(components, pred, Xs, v128, scalars),
+        lambda: kmvm.kmvm_plain(components, pred, Xs, v128, scalars), 10, 5))
+    X2 = torch.randn((DIST_N, d), generator=g, device=DEV) / math.sqrt(d)
+    w1 = torch.randn((DIST_N, 1), generator=g, device=DEV)
+    s1 = torch.randn((DIST_N, 1), generator=g, device=DEV)
+    for name, more in time_square(components, scalars, X2, w1, s1).items():
+        rows[name] += more
+    del X2, w1, s1
+    return {"rows": rows, "abs_err": abs_err, "worst": worst,
+            "costs": entry_cost_table()}
+
+
+def _time_row(name, shape, components, kern, plain, reps, plain_reps) -> dict:
+    """One timing row: the kernel against its plain version (2e-4 of
+    max|out|), then both timed with CUDA events, beside the bound."""
+    err = _rel(kern(), plain())
+    if not err <= TOL[torch.float32]:
+        raise SystemExit(f"[kernels] MISMATCH {name} {shape}: {err:.2e}")
+    ms = _time_ms(kern, reps)
+    plain_ms = _time_ms(plain, plain_reps)
+    bound, bound_by = _bound_ms(components, *shape, 4, name == "kmvm_dots")
+    log(f"[kernels] time {name} {shape}: {ms:.3f} ms (bound {bound:.3f} "
+        f"ms, {bound / ms:.1%} of it), plain {plain_ms:.3f} ms, rel err {err:.2e}")
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "rel_err": err}
+
+
+def time_square(components, scalars, X, v, r, reps=3, plain_reps=1) -> dict:
+    """B1 and B2 at (n, n, d, 1) with X as rows and columns, v the RHS and
+    r the CG residual: {"kmvm": row, "kmvm_dots": row} of lists."""
+    from repro_torch.kernels import kmvm
+
+    n, d = X.shape
+    return {
+        "kmvm": [_time_row(
+            "kmvm", (n, n, d, 1), components,
+            lambda: kmvm.kmvm_fused(components, X, X, v, scalars),
+            lambda: kmvm.kmvm_plain(components, X, X, v, scalars), reps,
+            plain_reps)],
+        "kmvm_dots": [_time_row(
+            "kmvm_dots", (n, n, d, 1), components,
+            lambda: kmvm.kmvm_fused_dots(components, X, X, v, v, r, scalars)[0],
+            lambda: kmvm.kmvm_dots_plain(components, X, X, v, v, r, scalars)[0],
+            reps, plain_reps)]}
 
 
 def phase_serve() -> dict:
@@ -378,6 +583,70 @@ def _b4_problem(expr, radius, X, t, dtype, tile, seed):
             torch.as_tensor(plan.pair_cols, device=DEV), plan)
 
 
+def time_b4_spatial(X_spatial) -> tuple:
+    """B4 at the spatial path's shape (2^18 Morton-sorted points, tile 256,
+    the training plan at radius 0.15 + 10% margin, lengthscale 0.693), t = 1
+    and 9, against its plain version, timed beside it and its bound:
+    (rows, {t: max abs err})."""
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.kernels.ops import fused_pass_or_none
+    from repro_torch.sparse import build_plan, kmvm_sparse
+    from repro_torch.sparse.blocksparse import fused_operands
+
+    params = init_kernel_params(SPATIAL_EXPR, noise=0.3, radius=0.15,
+                                device=DEV)
+    plan = build_plan(SPATIAL_EXPR, X_spatial, params, tile=256)
+    ppass = fused_pass_or_none(SPATIAL_EXPR, params)
+    n, d = X_spatial.shape
+    Xs = torch.as_tensor(X_spatial[plan.perm], device=DEV)
+    rp = torch.as_tensor(plan.row_ptr, device=DEV)
+    cols = torch.as_tensor(plan.pair_cols, device=DEV)
+    # the plan's longest-row-first schedule, as the operator launches it
+    # (a tree that predates it launches in plan order)
+    order = getattr(plan, "row_order", None)
+    sched = {} if order is None else {
+        "row_order": torch.as_tensor(order, device=DEV)}
+    g = torch.Generator(device=DEV).manual_seed(11)
+    entries = plan.entries
+    counts = np.diff(plan.row_ptr)
+    log(f"[blocksparse] main path plan: n={n} tile {plan.tile}, "
+        f"{plan.num_tiles} tiles, {plan.num_pairs} pairs, fill {plan.fill:.4f}, "
+        f"{entries:.4g} entries per MVM, pairs per row mean "
+        f"{counts.mean():.1f} max {plan.kmax}")
+    rows, abs_err = [], {}
+    for t, reps in ((1, 5), (9, 3)):
+        V = torch.randn((n, t), generator=g, device=DEV)
+        Xp, Vp, sc = fused_operands(ppass, Xs, V)
+
+        def kern():
+            return kmvm_sparse.kmvm_blocksparse(ppass.components, Xp, Xp, Vp,
+                                                sc, rp, cols, tile=plan.tile,
+                                                **sched)
+
+        def plain():
+            return kmvm_sparse.kmvm_blocksparse_plain(
+                ppass.components, Xp, Xp, Vp, sc, rp, cols, tile=plan.tile)
+
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = _rel(out, ref)
+        abs_err[t] = float(torch.max(torch.abs(out - ref)))
+        if not err <= TOL[torch.float32]:
+            raise SystemExit(f"[blocksparse] MISMATCH main path t={t}: {err:.2e}")
+        ms = _time_ms(kern, reps)
+        plain_ms = _time_ms(plain, 1)
+        bound, bound_by = _bound_ms(
+            ppass.components, n, n, d, t, 4, False, entries=entries,
+            extra_bytes=4 * (plan.num_pairs + plan.num_tiles + 1) - n * d * 4)
+        rows.append({"shape": [n, n, d, t], "entries": entries, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by})
+        log(f"[blocksparse] time B4 (n={n}, d={d}, t={t}, tile {plan.tile}): "
+            f"{ms:.3f} ms (bound {bound:.3f} ms, {bound / ms:.1%} of it), "
+            f"plain {plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+    return rows, abs_err
+
+
 def phase_blocksparse(X_spatial) -> dict:
     from repro_torch.kernels import kmvm
     from repro_torch.sparse import kmvm_sparse
@@ -396,7 +665,15 @@ def phase_blocksparse(X_spatial) -> dict:
                         expr, radius, X, t, dtype, tile, cases)
                     out = kmvm_sparse.kmvm_blocksparse(comps, Xp, Xp, Vp, sc,
                                                        rp, cols, tile=plan.tile)
+                    lrf = kmvm_sparse.kmvm_blocksparse(
+                        comps, Xp, Xp, Vp, sc, rp, cols, tile=plan.tile,
+                        row_order=torch.as_tensor(plan.row_order, device=DEV))
                     torch.cuda.synchronize()
+                    if not torch.equal(out, lrf):
+                        raise SystemExit(
+                            f"[blocksparse] longest-row-first launch differs "
+                            f"from plan order: {expr} tile {tile} n {n} t {t} "
+                            f"{dtype}")
                     ref = kmvm_sparse.kmvm_blocksparse_plain(
                         comps, Xp, Xp, Vp, sc, rp, cols, tile=plan.tile)
                     err = rel(out, ref)
@@ -412,60 +689,10 @@ def phase_blocksparse(X_spatial) -> dict:
                             f"t {t} {dtype}: {err:.2e} > {tol} (fill "
                             f"{plan.fill:.3f})")
     log(f"[blocksparse] {cases} cases match their plain versions (and B1 on "
-        f"the all-active plans); worst error / tolerance {worst:.3f}")
+        f"the all-active plans; longest-row-first = plan order bit for bit); "
+        f"worst error / tolerance {worst:.3f}")
 
-    # the spatial path's shape: 2^18 Morton-sorted points, tile 256, the
-    # training plan at radius 0.15 (+10% margin), lengthscale 0.693
-    from repro_torch.core.kernels_math import init_kernel_params
-    from repro_torch.kernels.ops import fused_pass_or_none
-    from repro_torch.sparse import build_plan
-    from repro_torch.sparse.blocksparse import fused_operands
-
-    params = init_kernel_params(SPATIAL_EXPR, noise=0.3, radius=0.15,
-                                device=DEV)
-    plan = build_plan(SPATIAL_EXPR, X_spatial, params, tile=256)
-    ppass = fused_pass_or_none(SPATIAL_EXPR, params)
-    n, d = X_spatial.shape
-    Xs = torch.as_tensor(X_spatial[plan.perm], device=DEV)
-    rp = torch.as_tensor(plan.row_ptr, device=DEV)
-    cols = torch.as_tensor(plan.pair_cols, device=DEV)
-    g = torch.Generator(device=DEV).manual_seed(11)
-    entries = plan.entries
-    counts = np.diff(plan.row_ptr)
-    log(f"[blocksparse] main path plan: n={n} tile {plan.tile}, "
-        f"{plan.num_tiles} tiles, {plan.num_pairs} pairs, fill {plan.fill:.4f}, "
-        f"{entries:.4g} entries per MVM, pairs per row mean "
-        f"{counts.mean():.1f} max {plan.kmax}")
-    rows, abs_err = [], {}
-    for t, reps in ((1, 5), (9, 3)):
-        V = torch.randn((n, t), generator=g, device=DEV)
-        Xp, Vp, sc = fused_operands(ppass, Xs, V)
-
-        def kern():
-            return kmvm_sparse.kmvm_blocksparse(ppass.components, Xp, Xp, Vp,
-                                                sc, rp, cols, tile=plan.tile)
-
-        def plain():
-            return kmvm_sparse.kmvm_blocksparse_plain(
-                ppass.components, Xp, Xp, Vp, sc, rp, cols, tile=plan.tile)
-
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err = rel(out, ref)
-        abs_err[t] = float(torch.max(torch.abs(out - ref)))
-        if not err <= TOL[torch.float32]:
-            raise SystemExit(f"[blocksparse] MISMATCH main path t={t}: {err:.2e}")
-        ms = _time_ms(kern, reps)
-        plain_ms = _time_ms(plain, 1)
-        bound, bound_by = _bound_ms(
-            ppass.components, n, n, d, t, 4, False, entries=entries,
-            extra_bytes=4 * (plan.num_pairs + plan.num_tiles + 1) - n * d * 4)
-        rows.append({"shape": [n, n, d, t], "entries": entries, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by})
-        log(f"[blocksparse] time B4 (n={n}, d={d}, t={t}, tile {plan.tile}): "
-            f"{ms:.3f} ms (bound {bound:.3f} ms, {bound / ms:.1%} of it), "
-            f"plain {plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+    rows, abs_err = time_b4_spatial(X_spatial)
     return {"rows": rows, "abs_err": abs_err, "worst": worst, "cases": cases}
 
 
@@ -651,10 +878,6 @@ def phase_crosscheck(X, y) -> dict:
     return {"value_diff": dv, "grad_worst": worst}
 
 
-def _rel(a, b) -> float:
-    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
-
-
 def _chunk_walk(fn, components, Xi, Xj, V, scalars, sizes):
     acc = torch.zeros((Xi.shape[0], V.shape[1]), dtype=torch.float32,
                       device=Xi.device)
@@ -664,6 +887,44 @@ def _chunk_walk(fn, components, Xi, Xj, V, scalars, sizes):
            scalars, acc)
         j += nc
     return acc
+
+
+def time_ring_step() -> tuple:
+    """B3 at one ring step of eight cards at n = 2^20 (rows = chunk = 2^17,
+    d = 9), t = 1 and 9, against its plain version, timed beside it and its
+    bound: (rows, {t: max abs err})."""
+    from repro_torch.kernels import kmvm
+
+    n, d = RING_STEP, 9
+    g = torch.Generator(device=DEV).manual_seed(13)
+    Xi = (torch.randn((n, d), generator=g, device=DEV) / math.sqrt(d)).contiguous()
+    Xj = (torch.randn((n, d), generator=g, device=DEV) / math.sqrt(d)).contiguous()
+    scalars = torch.tensor([1.0, 1.0], dtype=torch.float32, device=DEV)
+    components = (("matern32",),)
+    rows, abs_err = [], {}
+    for t, reps in ((1, 3), (9, 3)):
+        V = torch.randn((n, t), generator=g, device=DEV)
+        acc0 = torch.randn((n, t), generator=g, device=DEV)
+        out = kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc0.clone())
+        torch.cuda.synchronize()
+        ref = kmvm.kmvm_chunk_plain(components, Xi, Xj, V, scalars, acc0.clone())
+        err = _rel(out, ref)
+        abs_err[t] = float(torch.max(torch.abs(out - ref)))
+        if not err <= TOL[torch.float32]:
+            raise SystemExit(f"[chunk] MISMATCH ring step t={t}: {err:.2e}")
+        acc = acc0.clone()
+        ms = _time_ms(lambda: kmvm.kmvm_fused_chunk(components, Xi, Xj, V,
+                                                    scalars, acc), reps)
+        plain_ms = _time_ms(lambda: kmvm.kmvm_chunk_plain(
+            components, Xi, Xj, V, scalars, acc), 1)
+        bound, bound_by = _bound_ms(components, n, n, d, t, 4, False,
+                                    extra_bytes=n * t * 4)
+        rows.append({"shape": [n, n, d, t], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by})
+        log(f"[chunk] time B3 ring step ({n}, {n}, {d}, {t}): {ms:.3f} ms "
+            f"(bound {bound:.3f} ms, {bound / ms:.1%} of it), plain "
+            f"{plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+    return rows, abs_err
 
 
 def phase_chunk() -> dict:
@@ -712,36 +973,7 @@ def phase_chunk() -> dict:
         f"tolerance {worst:.3f}); chunk walks equal one B1 launch at n = 4096 "
         f"for {bitwise}")
 
-    # one ring step of eight cards at n = 2^20: rows = chunk = 2^17, d = 9
-    n, d = RING_STEP, 9
-    g = torch.Generator(device=DEV).manual_seed(13)
-    Xi = (torch.randn((n, d), generator=g, device=DEV) / math.sqrt(d)).contiguous()
-    Xj = (torch.randn((n, d), generator=g, device=DEV) / math.sqrt(d)).contiguous()
-    scalars = torch.tensor([1.0, 1.0], dtype=torch.float32, device=DEV)
-    components = (("matern32",),)
-    rows, abs_err = [], {}
-    for t, reps in ((1, 3), (9, 3)):
-        V = torch.randn((n, t), generator=g, device=DEV)
-        acc0 = torch.randn((n, t), generator=g, device=DEV)
-        out = kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc0.clone())
-        torch.cuda.synchronize()
-        ref = kmvm.kmvm_chunk_plain(components, Xi, Xj, V, scalars, acc0.clone())
-        err = _rel(out, ref)
-        abs_err[t] = float(torch.max(torch.abs(out - ref)))
-        if not err <= TOL[torch.float32]:
-            raise SystemExit(f"[chunk] MISMATCH ring step t={t}: {err:.2e}")
-        acc = acc0.clone()
-        ms = _time_ms(lambda: kmvm.kmvm_fused_chunk(components, Xi, Xj, V,
-                                                    scalars, acc), reps)
-        plain_ms = _time_ms(lambda: kmvm.kmvm_chunk_plain(
-            components, Xi, Xj, V, scalars, acc), 1)
-        bound, bound_by = _bound_ms(components, n, n, d, t, 4, False,
-                                    extra_bytes=n * t * 4)
-        rows.append({"shape": [n, n, d, t], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": bound_by})
-        log(f"[chunk] time B3 ring step ({n}, {n}, {d}, {t}): {ms:.3f} ms "
-            f"(bound {bound:.3f} ms, {bound / ms:.1%} of it), plain "
-            f"{plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+    rows, abs_err = time_ring_step()
     return {"rows": rows, "abs_err": abs_err, "worst": worst, "cases": cases}
 
 

@@ -46,8 +46,8 @@ ENTRY_POINTS = {
         "kmvm_error_string": ([_I], ctypes.c_char_p),
     },
     "kmvm_sparse": {
-        "kmvm_bs_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _I, _P], _I),
+        "kmvm_bs_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _P], _I),
         "kmvm_bs_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -9,26 +9,62 @@
 //
 // One thread block (256 threads) owns BM = 64 output rows and walks a
 // sequence of BN = 64-column chunks of Xj and V in an in-block loop (the
-// chunks come from a column walker: every column tile for B1/B2, the active
-// column tiles of the row's sparsity pattern for B4), so the output tile
-// stays in registers for the whole reduction and the kernel slab never
-// reaches device memory. Per chunk: the Xi/Xj feature chunks (DK = 16
-// features at a time, any d) and the V chunk go through shared memory; each
-// thread accumulates a 4x4 micro-tile of the cross term, applies the
-// component epilogue and writes the K tile to shared memory; then each
-// thread accumulates its share of K @ V. The RHS count t is covered in
-// chunks of TCH = 1, 16 or 128 columns (a template parameter picked from t),
-// so t = 1 (CG, Lanczos), t = 9 (training: y + 8 probes) and t = 128
-// (prediction) each get a thread layout that keeps all 256 threads busy.
+// chunks come from a column walker: every column tile for B1/B2/B3, the
+// active column tiles of the row's sparsity pattern for B4), so the output
+// tile stays in registers for the whole reduction and the kernel slab never
+// reaches device memory. Each thread owns a 4x4 micro-tile of the 64x64
+// chunk (rows 4 ty + p, columns 4 tx + q).
+//
+// What bounds it. Per entry the work is the cross term (2d operations), the
+// epilogue (an exp, and a sqrt for the Matern and Wendland kinds, per
+// factor) and K @ V (2t), on fp32 CUDA cores; the bytes are negligible. The
+// cost is instruction issue, so the design keeps every instruction that is
+// not arithmetic out of the entry loop:
+//
+// - The spec is resolved once per block (`resolve_spec`): the kinds, the
+//   factor counts, the scalars in `scalar_layout` order and sqrt(q_cf) go
+//   into shared memory. The epilogue runs component -> factor -> the 16
+//   entries of the micro-tile, so a factor's kind is branched on once per
+//   micro-tile (a block-uniform branch), the 16 exp/sqrt chains are
+//   independent and interleave, and r = sqrt(d2) is taken once per entry
+//   when any factor needs it (r_cf = sqrt(q_cf) r in place of
+//   sqrt(q_cf d2): a change of rounding only). IEEE expf/sqrtf/log1pf: the
+//   fp32 path is true fp32.
+// - Features and RHS rows are double-buffered in shared memory with
+//   cp.async (fp32 operands; bf16 operands are staged by plain loads): the
+//   next chunk's loads are in flight while the current chunk runs. The
+//   tiles are stored transposed ([feature][row], 16-byte rows) so a thread
+//   reads its 4 rows and its 4 columns of one feature with two 16-byte
+//   loads, and each thread sums the norms of its own rows and columns in
+//   the same loop (no norm pass, no barrier for it). The feature loop is
+//   unrolled to DK = 16, or DK = 4 for d <= 4 (a template parameter), and
+//   predicated at d.
+// - At t = 1 (CG, Lanczos) K @ V stays in registers: each thread folds its
+//   micro-tile into 4 row sums, and the 16 threads of a row group combine
+//   them once, at the end of the walk, by a fixed shuffle tree. One barrier
+//   per chunk. At t > 1 the K tile goes through shared memory to the
+//   t-chunk layout (TCH = 16 or 128 output columns per pass), where each
+//   thread owns its outputs and folds the columns in ascending order: two
+//   barriers per chunk.
+// - Occupancy: the cost is latency as much as issue, so the t = 1
+//   instances are held to 80 registers for three blocks (24 warps) per SM
+//   and evaluate the epilogue in two passes of 8 entries, each folded into
+//   K @ V at once. ptxas then keeps a few values in local memory, none in
+//   the entry loop: on an H100 this is 4% faster than two blocks with
+//   16-entry passes at d = 9, while at t = 9 the 16-entry passes at two
+//   blocks are the faster, and stay.
+//
 // Ragged rows, columns and d are masked in the kernel; nothing is padded in
 // device memory. Operands are fp32 or bf16 (template parameter T); all math
 // and accumulation is fp32, and on the bf16 path each K entry is rounded to
 // bf16 before the K @ V product, as the reference's bf16 matmul operand is.
-// No atomics: every output row is written by exactly one block, in a fixed
-// order, so a launch gives the same result on every run. With ACC (B3) the
-// output tile is the running accumulator: the block seeds its registers
-// from `out` and writes the tile back in place, so a walk over column
-// chunks continues the same register sum a single launch would form.
+// No atomics: every output row is written by exactly one block, and its sum
+// runs in an order fixed by the columns alone (not by m), so a launch gives
+// the same result on every run and a row the same bits in any launch. With
+// ACC (B3) the output tile is the running accumulator: the block seeds its
+// registers from `out` (at t = 1 only the first of the 16 threads of a row
+// group) and writes the tile back in place, so at t > 1 a walk over whole
+// 64-column chunks continues the same register sum a single launch forms.
 
 #pragma once
 
@@ -39,11 +75,10 @@ namespace {
 
 constexpr int BM = 64;    // output rows per block
 constexpr int BN = 64;    // columns of K per step of the in-block loop
-constexpr int DK = 16;    // features per chunk
 constexpr int NT = 256;   // threads per block
+constexpr int LDP = 68;   // row stride of the transposed shared tiles (16-byte rows)
 constexpr int MAX_COMP = 4;
 constexpr int MAX_FAC = 4;
-constexpr int SCAL_SLOTS = 64;  // >= MAX_COMP * (1 + 2 * MAX_FAC)
 
 struct KSpec {
   int ncomp;
@@ -55,10 +90,14 @@ struct KSpec {
 enum Kind { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3, RQ = 4,
             WENDLAND2 = 5, WENDLAND4 = 6 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// the spec resolved for one block, in shared memory
+struct Spec {
+  int ncomp, need_r;
+  int fend[MAX_COMP];                 // one past the component's last factor
+  float w[MAX_COMP];
+  int kind[MAX_COMP * MAX_FAC];
+  float q[MAX_COMP * MAX_FAC], sq[MAX_COMP * MAX_FAC], alpha[MAX_COMP * MAX_FAC];
+};
 
 // the K tile as the K @ V operand: unchanged for fp32, rounded for bf16
 template <typename T>
@@ -68,87 +107,213 @@ __device__ __forceinline__ float as_operand<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ float phi(int kind, float d2, float alpha) {
-  if (kind == RBF) return expf(-0.5f * d2);
-  if (kind == RQ) return expf(-alpha * log1pf(d2 / (2.0f * alpha)));
-  const float r = d2 > 0.0f ? sqrtf(d2) : 0.0f;
-  switch (kind) {
-    case MATERN12:
-      return expf(-r);
-    case MATERN32: {
-      const float a = 1.7320508075688772f * r;
-      return (1.0f + a) * expf(-a);
-    }
-    case MATERN52: {
-      const float a = 2.23606797749979f * r;
-      return (1.0f + a + (a * a) / 3.0f) * expf(-a);
-    }
-    case WENDLAND2: {
-      const float b = fmaxf(1.0f - r, 0.0f);
-      const float b2 = b * b;
-      return b2 * b2 * (4.0f * r + 1.0f);
-    }
-    case WENDLAND4: {
-      const float b = fmaxf(1.0f - r, 0.0f);
-      const float b3 = b * b * b;
-      return b3 * b3 * ((35.0f * r * r + 18.0f * r + 3.0f) / 3.0f);
+// One thread: scal in scalar_layout order (per component w_c, then per
+// factor q_cf, + alpha_cf for rq). The loops are unrolled to the static
+// bounds so the by-value KSpec is only ever indexed by constants.
+__device__ __forceinline__ void resolve_spec(const KSpec& sp,
+                                             const float* __restrict__ scal,
+                                             Spec* s) {
+  int slot = 0, f = 0, need_r = 0;
+#pragma unroll
+  for (int c = 0; c < MAX_COMP; ++c) {
+    if (c < sp.ncomp) {
+      s->w[c] = scal[slot++];
+#pragma unroll
+      for (int i = 0; i < MAX_FAC; ++i) {
+        if (i < sp.nfac[c]) {
+          const int kind = sp.kind[c][i];
+          const float q = scal[slot++];
+          s->kind[f] = kind;
+          s->q[f] = q;
+          s->sq[f] = sqrtf(q);
+          s->alpha[f] = kind == RQ ? scal[slot++] : 0.0f;
+          need_r |= kind != RBF && kind != RQ;
+          ++f;
+        }
+      }
+      s->fend[c] = f;
     }
   }
-  return 0.0f;
+  s->ncomp = sp.ncomp;
+  s->need_r = need_r;
 }
 
-// sum_c w_c prod_f phi_cf(q_cf d2), scalars in scalar_layout order:
-// per component w_c, then per factor q_cf (+ alpha_cf for rq)
-__device__ __forceinline__ float epilogue(const KSpec& sp, const float* sc,
-                                          float d2) {
-  float k = 0.0f;
-  int s = 0;
-  for (int c = 0; c < sp.ncomp; ++c) {
-    const float w = sc[s++];
-    float term = 1.0f;
-    for (int f = 0; f < sp.nfac[c]; ++f) {
-      const int kind = sp.kind[c][f];
-      const float q = sc[s++];
-      float alpha = 0.0f;
-      if (kind == RQ) alpha = sc[s++];
-      term *= phi(kind, q * d2, alpha);
-    }
-    k += w * term;
+// k[e] = sum_c w_c prod_f phi_cf(q_cf d2[e]) for N entries: the kind is
+// branched on once per factor, the N entries of each factor are
+// independent. r[e] = sqrt(d2[e]) when a factor needs it.
+template <int N>
+__device__ __forceinline__ void epilogue(const Spec& s, const float (&d2)[N],
+                                         float (&k)[N]) {
+  float r[N];
+  if (s.need_r) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) r[e] = sqrtf(d2[e]);
   }
-  return k;
+#pragma unroll
+  for (int e = 0; e < N; ++e) k[e] = 0.0f;
+  int f = 0;
+  for (int c = 0; c < s.ncomp; ++c) {
+    float term[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) term[e] = 1.0f;
+    for (; f < s.fend[c]; ++f) {
+      const float q = s.q[f], sq = s.sq[f];
+      switch (s.kind[f]) {
+        case RBF:
+#pragma unroll
+          for (int e = 0; e < N; ++e) term[e] *= expf(-0.5f * (q * d2[e]));
+          break;
+        case RQ: {
+          const float al = s.alpha[f];
+#pragma unroll
+          for (int e = 0; e < N; ++e)
+            term[e] *= expf(-al * log1pf((q * d2[e]) / (2.0f * al)));
+          break;
+        }
+        case MATERN12:
+#pragma unroll
+          for (int e = 0; e < N; ++e) term[e] *= expf(-(sq * r[e]));
+          break;
+        case MATERN32:
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float a = 1.7320508075688772f * (sq * r[e]);
+            term[e] *= (1.0f + a) * expf(-a);
+          }
+          break;
+        case MATERN52:
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float a = 2.23606797749979f * (sq * r[e]);
+            term[e] *= (1.0f + a + (a * a) / 3.0f) * expf(-a);
+          }
+          break;
+        case WENDLAND2:
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float rr = sq * r[e];
+            const float b = fmaxf(1.0f - rr, 0.0f);
+            const float b2 = b * b;
+            term[e] *= b2 * b2 * (4.0f * rr + 1.0f);
+          }
+          break;
+        case WENDLAND4:
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float rr = sq * r[e];
+            const float b = fmaxf(1.0f - rr, 0.0f);
+            const float b3 = b * b * b;
+            term[e] *= b3 * b3 * ((35.0f * rr * rr + 18.0f * rr + 3.0f) / 3.0f);
+          }
+          break;
+      }
+    }
+    const float w = s.w[c];
+#pragma unroll
+    for (int e = 0; e < N; ++e) k[e] += w * term[e];
+  }
 }
 
-// Thread layout of the K @ V step for a chunk of TCH output columns:
-// CL column lanes x RT row threads x JS splits of the BN columns of K,
-// each thread owning RPT rows x CPT columns of the (BM, TCH) output tile.
+// ---- staging: global -> shared, asynchronous for fp32 ------------------
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// dst = ok ? *src : 0. fp32: a 4-byte cp.async (zero-filled when !ok; src
+// is then any valid address); bf16: a plain load, converted.
+__device__ __forceinline__ void stage(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.0f;
+}
+
+// features [k0, k0 + kw) of rows [r0, r0 + 64) of X (row-major, d columns)
+// into dst[k * LDP + r]; rows at or past rlim read as zero
+template <typename T>
+__device__ __forceinline__ void stage_features(float* dst, const T* __restrict__ X,
+                                               int r0, int rlim, int k0, int kw,
+                                               int d, int tid) {
+  for (int e = tid; e < 64 * kw; e += NT) {
+    const int k = e >> 6, r = e & 63;
+    const bool ok = r0 + r < rlim;
+    stage(dst + k * LDP + r, X + (ok ? (size_t)(r0 + r) * d + k0 + k : 0), ok);
+  }
+}
+
+// RHS columns [c0, c0 + tcw) of rows [j0, j0 + 64) of V (row-major, t
+// columns) into dst[c * LDP + j] (dst[j] when TCH = 1); rows at or past
+// jlim read as zero
+template <typename T, int TCH>
+__device__ __forceinline__ void stage_rhs(float* dst, const T* __restrict__ V,
+                                          int j0, int jlim, int c0, int tcw,
+                                          int t, int tid) {
+  for (int e = tid; e < 64 * tcw; e += NT) {
+    const int c = e >> 6, j = e & 63;
+    const bool ok = j0 + j < jlim;
+    stage(dst + (TCH == 1 ? j : c * LDP + j),
+          V + (ok ? (size_t)(j0 + j) * t + c0 + c : 0), ok);
+  }
+}
+
+// Thread layout of the shared-memory K @ V pass for TCH > 1 output
+// columns: CL column lanes x RT row threads, each thread owning RPT rows x
+// CPT columns (cl + CL q) of the (BM, TCH) output tile.
 template <int TCH> struct Layout;
-template <> struct Layout<1> {
-  static constexpr int CL = 1, CPT = 1, RT = 64, RPT = 1, JS = 4;
-};
 template <> struct Layout<16> {
-  static constexpr int CL = 16, CPT = 1, RT = 16, RPT = 4, JS = 1;
+  static constexpr int CL = 16, CPT = 1, RT = 16, RPT = 4;
 };
 template <> struct Layout<128> {
-  static constexpr int CL = 32, CPT = 4, RT = 8, RPT = 8, JS = 1;
+  static constexpr int CL = 32, CPT = 4, RT = 8, RPT = 8;
 };
 
 template <int TCH>
-constexpr size_t smem_floats() {
-  return BM * (DK + 1) + BN * (DK + 1) + BM * (BN + 1) + BN * TCH + BM + BN +
-         SCAL_SLOTS;
+__host__ __device__ constexpr int rhs_floats() { return TCH == 1 ? BN : TCH * LDP; }
+
+// Blocks per SM the kernels are compiled for (__launch_bounds__): at t = 1
+// three (at most 80 registers; the epilogue in two passes of 8 entries),
+// above two (128 registers; 16 entries per pass at TCH = 16, 8 at 128).
+template <int TCH>
+__host__ __device__ constexpr int min_blocks() { return TCH == 1 ? 3 : 2; }
+
+template <int TCH, int DK>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return (4 * DK * LDP + 2 * rhs_floats<TCH>() + (TCH > 1 ? BM * LDP : 0)) *
+             sizeof(float) + sizeof(Spec);
 }
 
-// rows [r0, r0 + 64) x features [k0, k0 + DK) of X into shared memory;
-// rows at or past `rows` and features at or past d read as zero
-template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* __restrict__ X,
-                                           int r0, int rows, int k0, int d,
-                                           int tid) {
-  for (int e = tid; e < 64 * DK; e += NT) {
-    const int r = e / DK, k = e % DK;
-    float v = 0.0f;
-    if (r0 + r < rows && k0 + k < d) v = to_f32(X[(size_t)(r0 + r) * d + k0 + k]);
-    dst[r * (DK + 1) + k] = v;
+// The cross term of one feature chunk for a thread's micro-tile, plus the
+// squared norms of its 4 columns (and of its 4 rows when NI).
+template <int DK, bool NI>
+__device__ __forceinline__ void cross_term(const float* xi, const float* xj,
+                                           int kw, int ty, int tx,
+                                           float (&g)[4][4], float (&nj)[4],
+                                           float (&ni)[4]) {
+#pragma unroll
+  for (int k = 0; k < DK; ++k) {
+    if (k < kw) {
+      const float4 a4 = *reinterpret_cast<const float4*>(xi + k * LDP + 4 * ty);
+      const float4 b4 = *reinterpret_cast<const float4*>(xj + k * LDP + 4 * tx);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) g[p][q] = fmaf(a[p], b[q], g[p][q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) nj[q] = fmaf(b[q], b[q], nj[q]);
+      if (NI) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) ni[p] = fmaf(a[p], a[p], ni[p]);
+      }
+    }
   }
 }
 
@@ -166,176 +331,207 @@ struct DenseCols {
 // One block: out rows [i0, min(i0 + BM, mlim)) = K(Xi rows, Xj[walked
 // columns]) @ V[walked columns]; with DOTS, also the row tile's CG partials
 // [<Kv,v>, <r,v>, <r,r>, <v,v>] per column into dots[0..4t); with ACC,
-// out rows += that product instead (the first column split's registers
-// start from out, the others from zero, so the in-block split sum adds in
-// the same order).
-template <typename T, int TCH, bool DOTS, class Cols, bool ACC = false>
+// out rows += that product instead. DK: features per pipeline stage (4 or
+// 16); d > DK walks (column chunk, feature chunk) stages and reloads the
+// Xi feature chunk with each.
+template <typename T, int TCH, int DK, bool DOTS, class Cols, bool ACC = false>
 __device__ __forceinline__ void row_tile(
     const T* __restrict__ Xi, const T* __restrict__ Xj, const T* __restrict__ V,
     const float* __restrict__ Vrow, const float* __restrict__ R,
     const float* __restrict__ scal, const KSpec& sp, float* __restrict__ out,
-    float* __restrict__ dots, int i0, int mlim, int d, int t, int L,
+    float* __restrict__ dots, int i0, int mlim, int d, int t,
     const Cols& cols) {
-  static_assert(BM == 64 && BN == 64, "load_chunk and the 4x4 micro-tile assume 64");
-  using C = Layout<TCH>;
-  constexpr int JW = BN / C::JS;
+  static_assert(BM == 64 && BN == 64, "the staging and the 4x4 micro-tile assume 64");
+  constexpr int VS = rhs_floats<TCH>();
+  constexpr int EH = TCH == 16 ? 16 : 8;  // entries per epilogue pass
 
-  extern __shared__ float smem[];
-  float* xi_s = smem;
-  float* xj_s = xi_s + BM * (DK + 1);
-  float* k_s = xj_s + BN * (DK + 1);
-  float* v_s = k_s + BM * (BN + 1);
-  float* ni_s = v_s + BN * TCH;
-  float* nj_s = ni_s + BM;
-  float* sc_s = nj_s + BN;
+  extern __shared__ __align__(16) float smem[];
+  float* xi_s = smem;                  // [2][DK][LDP]
+  float* xj_s = xi_s + 2 * DK * LDP;   // [2][DK][LDP]
+  float* v_s = xj_s + 2 * DK * LDP;    // [2][VS]; the finished tile for DOTS
+  float* k_s = v_s + 2 * VS;           // [BM][LDP] when TCH > 1
+  Spec* spec = reinterpret_cast<Spec*>(k_s + (TCH > 1 ? BM * LDP : 0));
 
   const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;  // micro-tile rows 4ty+p, cols 4tx+q
   const int nkc = (d + DK - 1) / DK;
-  const int nchunks = cols.count();
+  const int nst = cols.count() * nkc;      // pipeline stages
+  const int kw0 = min(DK, d);
 
-  if (tid < L) sc_s[tid] = scal[tid];
-  if (tid < BM) {
-    float s = 0.0f;
-    if (i0 + tid < mlim) {
-      const T* row = Xi + (size_t)(i0 + tid) * d;
-      for (int k = 0; k < d; ++k) {
-        const float x = to_f32(row[k]);
-        s += x * x;
-      }
-    }
-    ni_s[tid] = s;
-  }
-  if (nkc == 1) load_chunk(xi_s, Xi, i0, mlim, 0, d, tid);
+  if (tid == 0) resolve_spec(sp, scal, spec);
+  if (nkc == 1) stage_features(xi_s, Xi, i0, mlim, 0, kw0, d, tid);
 
-  // cross-term micro-tile: rows ty + 16p, columns tx + 16q
-  const int ty = tid / 16, tx = tid % 16;
-  // K @ V layout
-  const int cl = tid % C::CL;
-  const int rt = (tid / C::CL) % C::RT;
-  const int js = tid / (C::CL * C::RT);
+  // the shared-memory K @ V layout (TCH > 1)
+  constexpr int CL = TCH > 1 ? Layout<(TCH > 1 ? TCH : 16)>::CL : 1;
+  constexpr int CPT = TCH > 1 ? Layout<(TCH > 1 ? TCH : 16)>::CPT : 1;
+  constexpr int RT = TCH > 1 ? Layout<(TCH > 1 ? TCH : 16)>::RT : 1;
+  constexpr int RPT = TCH > 1 ? Layout<(TCH > 1 ? TCH : 16)>::RPT : 4;
+  const int cl = tid % CL;
+  const int rt = (tid / CL) % RT;
 
+  // stage s: features of chunk s / nkc (and of Xi when nkc > 1) into buffer
+  // s & 1; the RHS rows of the chunk into buffer (s / nkc) & 1 at its first
+  // feature chunk
+  auto issue = [&](int s, int j0, int jlim, int c0, int tcw) {
+    const int kch = s / nkc, kc = s - kch * nkc;
+    const int k0 = kc * DK, kw = min(DK, d - k0);
+    stage_features(xj_s + (s & 1) * DK * LDP, Xj, j0, jlim, k0, kw, d, tid);
+    if (nkc > 1) stage_features(xi_s + (s & 1) * DK * LDP, Xi, i0, mlim, k0, kw, d, tid);
+    if (kc == 0) stage_rhs<T, TCH>(v_s + (kch & 1) * VS, V, j0, jlim, c0, tcw, t, tid);
+    cp_async_commit();
+  };
+
+  float ni[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int c0 = 0; c0 < t; c0 += TCH) {
     const int tcw = min(TCH, t - c0);
-    float acc[C::RPT][C::CPT];
+    float acc[RPT][CPT];
 #pragma unroll
-    for (int p = 0; p < C::RPT; ++p)
+    for (int p = 0; p < RPT; ++p)
 #pragma unroll
-      for (int q = 0; q < C::CPT; ++q) {
+      for (int q = 0; q < CPT; ++q) {
         float a0 = 0.0f;
-        if (ACC && js == 0) {
-          const int r = rt * C::RPT + p, c = cl + C::CL * q;
-          if (i0 + r < mlim && c < tcw) a0 = out[(size_t)(i0 + r) * t + c0 + c];
+        if (ACC) {
+          const int r = TCH == 1 ? 4 * ty + p : rt * RPT + p;
+          const int c = TCH == 1 ? 0 : cl + CL * q;
+          if ((TCH > 1 || tx == 0) && i0 + r < mlim && c < tcw)
+            a0 = out[(size_t)(i0 + r) * t + c0 + c];
         }
         acc[p][q] = a0;
       }
 
-    for (int kch = 0; kch < nchunks; ++kch) {
-      int j0, jlim;
-      cols.chunk(kch, j0, jlim);
-      float g[4][4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) g[p][q] = 0.0f;
-      float njp = 0.0f;
+    int j0 = 0, jlim = 0;
+    if (nst > 0) {
+      cols.chunk(0, j0, jlim);
+      issue(0, j0, jlim, c0, tcw);
+    }
+    float g[4][4], nj[4];
+    for (int s = 0; s < nst; ++s) {
+      const int kch = s / nkc, kc = s - kch * nkc;
+      int nj0 = j0, njlim = jlim;  // the next stage's columns, read early
+      if (s + 1 < nst && kc + 1 == nkc) cols.chunk(kch + 1, nj0, njlim);
+      cp_async_wait_all();
+      __syncthreads();  // stage s is visible; every thread is past stage s - 1
+      if (s + 1 < nst) issue(s + 1, nj0, njlim, c0, tcw);
 
-      for (int kc = 0; kc < nkc; ++kc) {
-        const int k0 = kc * DK;
-        if (nkc > 1) load_chunk(xi_s, Xi, i0, mlim, k0, d, tid);
-        load_chunk(xj_s, Xj, j0, jlim, k0, d, tid);
+      if (kc == 0) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          nj[p] = 0.0f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) g[p][q] = 0.0f;
+        }
+      }
+      const int kw = min(DK, d - kc * DK);
+      const float* xi = xi_s + (nkc > 1 ? (s & 1) * DK * LDP : 0);
+      const float* xj = xj_s + (s & 1) * DK * LDP;
+      if (nkc > 1 || s == 0) {  // the rows' norms: once, or per feature chunk
         if (kc == 0) {
-          for (int e = tid; e < BN * TCH; e += NT) {
-            const int j = e / TCH, c = e % TCH;
-            float v = 0.0f;
-            if (j0 + j < jlim && c < tcw) v = to_f32(V[(size_t)(j0 + j) * t + c0 + c]);
-            v_s[e] = v;
-          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) ni[p] = 0.0f;
         }
-        __syncthreads();
-        const int kmax = min(DK, d - k0);
+        cross_term<DK, true>(xi, xj, kw, ty, tx, g, nj, ni);
+      } else {
+        cross_term<DK, false>(xi, xj, kw, ty, tx, g, nj, ni);
+      }
+
+      if (kc + 1 == nkc) {  // the chunk's epilogue and K @ V
+        // columns of this thread's micro-tile past the chunk's end (a
+        // ragged last chunk) get K = 0
+        const int nvalid = jlim - j0 - 4 * tx;
+        const float* vb = v_s + (kch & 1) * VS;
+        float v[4];
+        if constexpr (TCH == 1) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vb + 4 * tx);
+          v[0] = v4.x, v[1] = v4.y, v[2] = v4.z, v[3] = v4.w;
+        }
+        // EH entries (EH / 4 rows of the micro-tile) at a time: d2, the
+        // epilogue, then straight into K @ V (t = 1) or the K tile
 #pragma unroll
-        for (int k = 0; k < DK; ++k) {
-          if (k < kmax) {
-            float a[4], b[4];
+        for (int h = 0; h < 16 / EH; ++h) {
+          float d2[EH], kv[EH];
 #pragma unroll
-            for (int p = 0; p < 4; ++p) {
-              a[p] = xi_s[(ty + 16 * p) * (DK + 1) + k];
-              b[p] = xj_s[(tx + 16 * p) * (DK + 1) + k];
+          for (int e = 0; e < EH; ++e) {
+            const int p = (h * EH + e) / 4, q = e % 4;
+            d2[e] = fmaxf(ni[p] + nj[q] - 2.0f * g[p][q], 0.0f);
+          }
+          epilogue<EH>(*spec, d2, kv);
+#pragma unroll
+          for (int e = 0; e < EH; ++e) {
+            kv[e] = as_operand<T>(kv[e]);
+            if (nvalid < 4 && e % 4 >= nvalid) kv[e] = 0.0f;
+          }
+#pragma unroll
+          for (int pr = 0; pr < EH / 4; ++pr) {
+            const int p = h * (EH / 4) + pr;
+            if constexpr (TCH == 1) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                acc[p][0] = fmaf(kv[4 * pr + q], v[q], acc[p][0]);
+            } else {
+              *reinterpret_cast<float4*>(k_s + (4 * ty + p) * LDP + 4 * tx) =
+                  make_float4(kv[4 * pr], kv[4 * pr + 1], kv[4 * pr + 2],
+                              kv[4 * pr + 3]);
             }
-#pragma unroll
-            for (int p = 0; p < 4; ++p)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) g[p][q] += a[p] * b[q];
           }
         }
-        if (tid < BN) {
-          for (int k = 0; k < kmax; ++k) {
-            const float x = xj_s[tid * (DK + 1) + k];
-            njp += x * x;
+        if constexpr (TCH > 1) {
+          __syncthreads();
+#pragma unroll 2
+          for (int j = 0; j < BN; j += 4) {
+            float4 kr[RPT], vr[CPT];
+#pragma unroll
+            for (int p = 0; p < RPT; ++p)
+              kr[p] = *reinterpret_cast<const float4*>(k_s + (rt * RPT + p) * LDP + j);
+#pragma unroll
+            for (int q = 0; q < CPT; ++q)
+              vr[q] = *reinterpret_cast<const float4*>(vb + (cl + CL * q) * LDP + j);
+#pragma unroll
+            for (int p = 0; p < RPT; ++p)
+#pragma unroll
+              for (int q = 0; q < CPT; ++q) {
+                acc[p][q] = fmaf(kr[p].x, vr[q].x, acc[p][q]);
+                acc[p][q] = fmaf(kr[p].y, vr[q].y, acc[p][q]);
+                acc[p][q] = fmaf(kr[p].z, vr[q].z, acc[p][q]);
+                acc[p][q] = fmaf(kr[p].w, vr[q].w, acc[p][q]);
+              }
           }
         }
-        __syncthreads();
       }
-      if (tid < BN) nj_s[tid] = njp;
-      __syncthreads();
-
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int r = ty + 16 * p;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int j = tx + 16 * q;
-          const float d2 = fmaxf(ni_s[r] + nj_s[j] - 2.0f * g[p][q], 0.0f);
-          k_s[r * (BN + 1) + j] =
-              (j0 + j < jlim) ? as_operand<T>(epilogue(sp, sc_s, d2)) : 0.0f;
-        }
-      }
-      __syncthreads();
-
-      for (int jj = 0; jj < JW; ++jj) {
-        const int j = js * JW + jj;
-        float vv[C::CPT];
-#pragma unroll
-        for (int q = 0; q < C::CPT; ++q) vv[q] = v_s[j * TCH + cl + C::CL * q];
-#pragma unroll
-        for (int p = 0; p < C::RPT; ++p) {
-          const float kv = k_s[(rt * C::RPT + p) * (BN + 1) + j];
-#pragma unroll
-          for (int q = 0; q < C::CPT; ++q) acc[p][q] += kv * vv[q];
-        }
-      }
-      __syncthreads();
+      j0 = nj0;
+      jlim = njlim;
     }
+    cp_async_wait_all();  // nothing in flight (the Xi tile when nst = 0)
+    __syncthreads();      // every thread is done with v_s and k_s
 
-    if (C::JS > 1) {  // sum the column splits, in split order, through k_s
-#pragma unroll
-      for (int p = 0; p < C::RPT; ++p)
-#pragma unroll
-        for (int q = 0; q < C::CPT; ++q)
-          k_s[(js * BM + rt * C::RPT + p) * TCH + cl + C::CL * q] = acc[p][q];
-      __syncthreads();
-      if (js == 0) {
-#pragma unroll
-        for (int p = 0; p < C::RPT; ++p)
-#pragma unroll
-          for (int q = 0; q < C::CPT; ++q) {
-            float s = 0.0f;
-            for (int sp_i = 0; sp_i < C::JS; ++sp_i)
-              s += k_s[(sp_i * BM + rt * C::RPT + p) * TCH + cl + C::CL * q];
-            acc[p][q] = s;
-          }
+    float* fin = v_s;  // the finished (BM, TCH) tile, for the dots
+    if constexpr (TCH == 1) {
+      // the 16 threads of a row group (lanes tx of a half-warp) combine
+      // their 4 row sums by a fixed tree: xor 8 halves the rows, xor 4
+      // halves them again, xor 2 and 1 add the rest
+      const unsigned full = 0xffffffffu;
+      const bool h8 = tx & 8, h4 = tx & 4;
+      float k0 = h8 ? acc[2][0] : acc[0][0], k1 = h8 ? acc[3][0] : acc[1][0];
+      const float s0 = h8 ? acc[0][0] : acc[2][0], s1 = h8 ? acc[1][0] : acc[3][0];
+      k0 += __shfl_xor_sync(full, s0, 8);
+      k1 += __shfl_xor_sync(full, s1, 8);
+      float v = h4 ? k1 : k0;
+      v += __shfl_xor_sync(full, h4 ? k0 : k1, 4);
+      v += __shfl_xor_sync(full, v, 2);
+      v += __shfl_xor_sync(full, v, 1);
+      const int r = 4 * ty + (h8 ? 2 : 0) + (h4 ? 1 : 0);
+      if ((tx & 3) == 0) {
+        if (i0 + r < mlim) out[(size_t)(i0 + r) * t + c0] = v;
+        if (DOTS) fin[r] = v;
       }
-    }
-
-    if (js == 0) {
+    } else {
 #pragma unroll
-      for (int p = 0; p < C::RPT; ++p) {
-        const int r = rt * C::RPT + p;
+      for (int p = 0; p < RPT; ++p) {
+        const int r = rt * RPT + p;
 #pragma unroll
-        for (int q = 0; q < C::CPT; ++q) {
-          const int c = cl + C::CL * q;
+        for (int q = 0; q < CPT; ++q) {
+          const int c = cl + CL * q;
           if (i0 + r < mlim && c < tcw) out[(size_t)(i0 + r) * t + c0 + c] = acc[p][q];
-          if (DOTS) v_s[r * TCH + c] = acc[p][q];  // the finished tile, for the dots
+          if (DOTS) fin[r * TCH + c] = acc[p][q];
         }
       }
     }
@@ -347,7 +543,7 @@ __device__ __forceinline__ void row_tile(
         const int rows = min(BM, mlim - i0);
         for (int r = 0; r < rows; ++r) {
           const size_t idx = (size_t)(i0 + r) * t + c0 + tid;
-          const float kv = v_s[r * TCH + tid];
+          const float kv = fin[r * TCH + tid];
           const float vr = Vrow[idx];
           const float rr = R[idx];
           s0 += kv * vr;
@@ -361,8 +557,8 @@ __device__ __forceinline__ void row_tile(
         dp[2 * (size_t)t] = s2;
         dp[3 * (size_t)t] = s3;
       }
+      __syncthreads();  // before the next column chunk restages v_s
     }
-    __syncthreads();  // before the next column chunk reuses k_s and v_s
   }
 }
 
@@ -376,5 +572,17 @@ KSpec unpack_spec(const int* spec) {
   }
   return sp;
 }
+
+// `return CALL(TCH, DK);` for the t-chunk of t (1, 16 or 128 RHS columns
+// per pass) and the feature stage of d (4 for d <= 4, else 16)
+#define BY_SHAPE(d, t, CALL)              \
+  if ((d) <= 4) {                         \
+    if ((t) == 1) return CALL(1, 4);      \
+    if ((t) <= 16) return CALL(16, 4);    \
+    return CALL(128, 4);                  \
+  }                                       \
+  if ((t) == 1) return CALL(1, 16);       \
+  if ((t) <= 16) return CALL(16, 16);     \
+  return CALL(128, 16);
 
 }  // namespace

@@ -28,10 +28,18 @@
 // reaches. Any tile size works (a tile that is not a multiple of 64 masks
 // the ragged sub-tile and column chunk), any m and n (last tiles may be
 // ragged; nothing is padded in device memory), any t >= 1 (t-chunk layouts
-// 1, 16 and 128; t is not padded to 128 lanes). Row tiles of very
-// different degree (the plan's kmax against its mean) are not split
-// across blocks yet: a long row is one block's loop.
+// 1, 16 and 128; t is not padded to 128 lanes).
 //
+// Schedule. Row tiles differ in degree (at n = 2^18 the spatial plan's
+// rows hold 144 pairs on average and 614 at most), and the blocks of the
+// dense clusters, which have the longest rows, would otherwise launch in
+// Morton order, some of them in the last wave. The wrapper passes the row
+// tiles in descending degree (stable), computed once per plan, and block
+// b takes row tile order[b / subtiles]: the long rows start first and the
+// short ones fill the tail. Each block's work and summation order are
+// those of the identity schedule, so the order changes no bits. A long row
+// is still one block's loop (not split across blocks).
+
 // What bounds it. Per active (i, j) entry: 2d operations for the cross
 // term, the epilogue, and 2t for K @ V on fp32 CUDA cores; the bytes (each
 // point's features and RHS row once, the output once) are negligible next
@@ -57,57 +65,57 @@ struct PairCols {
   }
 };
 
-template <typename T, int TCH>
-__global__ void __launch_bounds__(NT)
+template <typename T, int TCH, int DK>
+__global__ void __launch_bounds__(NT, min_blocks<TCH>())
 kmvm_bs_kernel(const T* __restrict__ Xi, const T* __restrict__ Xj,
                const T* __restrict__ V, const float* __restrict__ scal,
                const KSpec sp, const int* __restrict__ row_ptr,
-               const int* __restrict__ cols, float* __restrict__ out, int m,
-               int n, int d, int t, int L, int rtile, int ctile,
-               int subtiles) {
-  const int r = blockIdx.x / subtiles;
-  const int i0 = r * rtile + (blockIdx.x - r * subtiles) * BM;
+               const int* __restrict__ cols, const int* __restrict__ order,
+               float* __restrict__ out, int m, int n, int d, int t, int rtile,
+               int ctile, int subtiles) {
+  const int slot = blockIdx.x / subtiles;
+  const int r = order != nullptr ? order[slot] : slot;
+  const int i0 = r * rtile + (blockIdx.x - slot * subtiles) * BM;
   const int mlim = min(r * rtile + rtile, m);
   if (i0 >= mlim) return;  // the ragged last tile has fewer sub-tiles
   const int p0 = row_ptr[r];
   const PairCols pc{cols, p0, row_ptr[r + 1] - p0, ctile,
                     (ctile + BN - 1) / BN, n};
-  row_tile<T, TCH, false>(Xi, Xj, V, nullptr, nullptr, scal, sp, out, nullptr,
-                          i0, mlim, d, t, L, pc);
+  row_tile<T, TCH, DK, false>(Xi, Xj, V, nullptr, nullptr, scal, sp, out,
+                              nullptr, i0, mlim, d, t, pc);
 }
 
-template <typename T, int TCH>
+template <typename T, int TCH, int DK>
 int launch_bs(const void* Xi, const void* Xj, const void* V,
-              const float* scal, const KSpec& sp, int L, const int* row_ptr,
-              const int* cols, float* out, int num_row_tiles, int m, int n,
-              int d, int t, int rtile, int ctile, cudaStream_t stream) {
-  const size_t smem = smem_floats<TCH>() * sizeof(float);
+              const float* scal, const KSpec& sp, const int* row_ptr,
+              const int* cols, const int* order, float* out, int num_row_tiles,
+              int m, int n, int d, int t, int rtile, int ctile,
+              cudaStream_t stream) {
+  const size_t smem = smem_bytes<TCH, DK>();
   cudaError_t err = cudaFuncSetAttribute(
-      kmvm_bs_kernel<T, TCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kmvm_bs_kernel<T, TCH, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int subtiles = (rtile + BM - 1) / BM;
   const dim3 grid((unsigned)num_row_tiles * subtiles);
-  kmvm_bs_kernel<T, TCH><<<grid, NT, smem, stream>>>(
+  kmvm_bs_kernel<T, TCH, DK><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(Xi), static_cast<const T*>(Xj),
-      static_cast<const T*>(V), scal, sp, row_ptr, cols, out, m, n, d, t, L,
-      rtile, ctile, subtiles);
+      static_cast<const T*>(V), scal, sp, row_ptr, cols, order, out, m, n, d,
+      t, rtile, ctile, subtiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_bs(const void* Xi, const void* Xj, const void* V,
-                const float* scal, const KSpec& sp, int L, const int* row_ptr,
-                const int* cols, float* out, int num_row_tiles, int m, int n,
-                int d, int t, int rtile, int ctile, cudaStream_t s) {
-  if (t == 1)
-    return launch_bs<T, 1>(Xi, Xj, V, scal, sp, L, row_ptr, cols, out,
-                           num_row_tiles, m, n, d, t, rtile, ctile, s);
-  if (t <= 16)
-    return launch_bs<T, 16>(Xi, Xj, V, scal, sp, L, row_ptr, cols, out,
-                            num_row_tiles, m, n, d, t, rtile, ctile, s);
-  return launch_bs<T, 128>(Xi, Xj, V, scal, sp, L, row_ptr, cols, out,
-                           num_row_tiles, m, n, d, t, rtile, ctile, s);
+                const float* scal, const KSpec& sp, const int* row_ptr,
+                const int* cols, const int* order, float* out,
+                int num_row_tiles, int m, int n, int d, int t, int rtile,
+                int ctile, cudaStream_t s) {
+#define CALL(TCH, DK) launch_bs<T, TCH, DK>(Xi, Xj, V, scal, sp, row_ptr, cols, \
+                                            order, out, num_row_tiles, m, n, d, \
+                                            t, rtile, ctile, s)
+  BY_SHAPE(d, t, CALL)
+#undef CALL
 }
 
 }  // namespace
@@ -119,19 +127,22 @@ extern "C" {
 // num_row_tiles tiles of rtile rows; columns Xj (n, d) and V (n, t) in
 // tiles of ctile rows. row_ptr: device (num_row_tiles + 1) int32 CSR offsets
 // into cols, the active column tiles of each row tile in ascending order.
-// out (m, t) fp32. Everything row-major on the device. Returns
-// cudaGetLastError() of the launch (0 = launched).
+// order: device (num_row_tiles,) int32, the row tiles in launch order (the
+// longest rows first), or null for the plan's order. out (m, t) fp32.
+// Everything row-major on the device. Returns cudaGetLastError() of the
+// launch (0 = launched).
 int kmvm_bs_fwd(int dtype, const void* Xi, const void* Xj, const void* V,
                 const float* scal, const int* spec, int L, const int* row_ptr,
-                const int* cols, float* out, int num_row_tiles, int m, int n,
-                int d, int t, int rtile, int ctile, void* stream) {
+                const int* cols, const int* order, float* out,
+                int num_row_tiles, int m, int n, int d, int t, int rtile,
+                int ctile, void* stream) {
   const KSpec sp = unpack_spec(spec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return dispatch_bs<__nv_bfloat16>(Xi, Xj, V, scal, sp, L, row_ptr, cols,
-                                      out, num_row_tiles, m, n, d, t,
+    return dispatch_bs<__nv_bfloat16>(Xi, Xj, V, scal, sp, row_ptr, cols,
+                                      order, out, num_row_tiles, m, n, d, t,
                                       rtile, ctile, s);
-  return dispatch_bs<float>(Xi, Xj, V, scal, sp, L, row_ptr, cols, out,
+  return dispatch_bs<float>(Xi, Xj, V, scal, sp, row_ptr, cols, order, out,
                             num_row_tiles, m, n, d, t, rtile, ctile, s);
 }
 

@@ -66,7 +66,7 @@ from repro_torch.kernels.ops import (
     fused_pass_or_none,
 )
 
-from .kmvm_sparse import kmvm_blocksparse, tile_rows
+from .kmvm_sparse import kmvm_blocksparse, longest_row_first, tile_rows
 from .plan import SparsePlan, build_plan, chunk_sliced_plan, spec_support_radius
 
 _QUERY_TILE = 64     # rows per tile of a query chunk in `cross_matvec`
@@ -116,12 +116,13 @@ def fused_operands(ppass, Xs, Vs, compute_dtype=None):
 
 
 def sorted_fused_kmvm(ppass, Xs, Vs, row_ptr, cols, *, tile: int,
-                      compute_dtype=None) -> torch.Tensor:
+                      compute_dtype=None, row_order=None) -> torch.Tensor:
     """One fused pass over the active pairs on pre-sorted operands (the
-    counterpart of `pallas_sorted_kmvm`): (n, t) fp32."""
+    counterpart of `pallas_sorted_kmvm`): (n, t) fp32; `row_order`: the
+    plan's launch order (`SparsePlan.row_order`)."""
     Xp, Vp, scalars = fused_operands(ppass, Xs, Vs, compute_dtype)
     return kmvm_blocksparse(ppass.components, Xp, Xp, Vp, scalars, row_ptr,
-                            cols, tile=tile)
+                            cols, tile=tile, row_order=row_order)
 
 
 def sparse_quad_form_partials(kernel, Xs, A, V, params, plan: SparsePlan):
@@ -175,6 +176,7 @@ class BlockSparseOperator(KernelOperator):
         self._inv_perm = torch.as_tensor(plan.inv_perm, device=dev).long()
         self._row_ptr = torch.as_tensor(plan.row_ptr, device=dev)
         self._cols = torch.as_tensor(plan.pair_cols, device=dev)
+        self._row_order = torch.as_tensor(plan.row_order, device=dev)
         self._Xs = X[self._perm]
 
     @classmethod
@@ -189,7 +191,8 @@ class BlockSparseOperator(KernelOperator):
         if ppass is not None:
             out = sorted_fused_kmvm(ppass, self._Xs, Vs, self._row_ptr,
                                     self._cols, tile=self.plan.tile,
-                                    compute_dtype=cdt)
+                                    compute_dtype=cdt,
+                                    row_order=self._row_order)
             return out.to(Vs.dtype)
         return masked_kmvm(self.config.kernel, self._Xs, Vs, self.params,
                            self.plan, compute_dtype=cdt)
@@ -262,7 +265,8 @@ class BlockSparseOperator(KernelOperator):
         list cut into segments of _SEGMENT_TILES consecutive plan tiles
         (boundaries fixed in the plan's tile order, so they do not depend
         on the chunk); each segment is a separate copy of the query rows in
-        the launch, so a short chunk still fills the card."""
+        the launch, so a short chunk still fills the card. The launch order
+        (longest segment first) comes with the chunk's CSR, on the host."""
         m = Z.shape[0]
         q = -(-m // _QUERY_TILE)
         seg_of = tiles // _SEGMENT_TILES
@@ -279,7 +283,9 @@ class BlockSparseOperator(KernelOperator):
         return ((ppass.components, Zp.repeat(len(segs), 1), Xp, Vp, scalars,
                  torch.as_tensor(row_ptr, dtype=torch.int32, device=dev),
                  torch.as_tensor(cols, dtype=torch.int32, device=dev)),
-                {"tile": self.plan.tile, "row_tile": _QUERY_TILE})
+                {"tile": self.plan.tile, "row_tile": _QUERY_TILE,
+                 "row_order": torch.as_tensor(longest_row_first(row_ptr),
+                                              device=dev)})
 
     def _cross_fused(self, ppass, Z, Vs, tiles: np.ndarray, cdt):
         """One block-sparse launch for a query chunk (`_cross_operands`);
@@ -314,21 +320,23 @@ class BlockSparseOperator(KernelOperator):
 
 @functools.lru_cache(maxsize=64)
 def _rows_csr(plan: SparsePlan, r0: int, r1: int, device: str):
-    """(row_ptr, cols) int32 on `device`: the CSR of plan row tiles
-    [r0, r1), offsets rebased to 0."""
+    """(row_ptr, cols, row_order) int32 on `device`: the CSR of plan row
+    tiles [r0, r1), offsets rebased to 0, and its launch order."""
     rp = plan.row_ptr
     ptr = (rp[r0:r1 + 1] - rp[r0]).astype(np.int32)
     cols = plan.pair_cols[rp[r0]:rp[r1]].astype(np.int32)
     return (torch.as_tensor(ptr, device=device),
-            torch.as_tensor(cols, device=device))
+            torch.as_tensor(cols, device=device),
+            torch.as_tensor(longest_row_first(ptr), device=device))
 
 
 @functools.lru_cache(maxsize=64)
 def _chunk_csrs(plan: SparsePlan, n_chunks: int, r0: int, r1: int,
                 device: str) -> tuple:
-    """Per global vector chunk c: (row_ptr, cols) int32 on `device` of plan
-    row tiles [r0, r1) against the chunk's own tiles (in-chunk indices,
-    ascending) — `chunk_sliced_plan` in the block-sparse kernel's CSR form."""
+    """Per global vector chunk c: (row_ptr, cols, row_order) int32 on
+    `device` of plan row tiles [r0, r1) against the chunk's own tiles
+    (in-chunk indices, ascending) — `chunk_sliced_plan` in the block-sparse
+    kernel's CSR form, with its launch order."""
     sl = chunk_sliced_plan(plan, n_chunks)
     out = []
     for c in range(n_chunks):
@@ -337,12 +345,13 @@ def _chunk_csrs(plan: SparsePlan, n_chunks: int, r0: int, r1: int,
         ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
         cols = sl.cols[r0:r1, c][valid].astype(np.int32)
         out.append((torch.as_tensor(ptr, device=device),
-                    torch.as_tensor(cols, device=device)))
+                    torch.as_tensor(cols, device=device),
+                    torch.as_tensor(longest_row_first(ptr), device=device)))
     return tuple(out)
 
 
 def _local_rows_kmvm(kernel, params, x_rows, x_cols, v, ppass, row_ptr, cols,
-                     tile, compute_dtype):
+                     row_order, tile, compute_dtype):
     """K(x_rows, x_cols) @ v over the CSR's active tiles: one block-sparse
     launch (fp32 out) when the spec is one fused pass, else one gathered
     slab per row tile."""
@@ -351,7 +360,7 @@ def _local_rows_kmvm(kernel, params, x_rows, x_cols, v, ppass, row_ptr, cols,
                        else compute_dtype)
         Xc, Vc, scalars = fused_operands(ppass, x_cols, v, compute_dtype)
         return kmvm_blocksparse(ppass.components, Xp, Xc, Vc, scalars,
-                                row_ptr, cols, tile=tile)
+                                row_ptr, cols, tile=tile, row_order=row_order)
     inner = _inner_block_fn(kernel, compute_dtype)
     out = v.new_empty((x_rows.shape[0], v.shape[1]))
     rp = row_ptr.tolist()

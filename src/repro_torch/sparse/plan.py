@@ -218,6 +218,8 @@ class SparsePlan:
       row_valid      (T, kmax) validity mask for row_cols
       row_ptr        (T + 1,)  CSR offsets of each row's pairs (the
                                block-sparse kernel's form of pair_first)
+      row_order      (T,)      the row tiles longest first: the kernel's
+                               launch order (computed at first use)
 
     Scalars: n, d, tile, num_tiles, kmax, num_pairs, fill (= P / T^2),
     support (input-space radius at the planning params; inf = all-active),
@@ -259,6 +261,15 @@ class SparsePlan:
         h.update(pair_rows.tobytes())
         h.update(pair_cols.tobytes())
         self.digest = h.hexdigest()
+
+    @functools.cached_property
+    def row_order(self) -> np.ndarray:
+        """(T,) int32: the row tiles longest first (descending CSR degree,
+        ties in plan order), the block-sparse kernel's launch order;
+        computed once per plan."""
+        from .kmvm_sparse import longest_row_first
+
+        return longest_row_first(self.row_ptr)
 
     @property
     def n_pad(self) -> int:

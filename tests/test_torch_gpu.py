@@ -95,6 +95,51 @@ def test_kmvm_dots_kernel_matches_plain(cuda, spec, shape, dtype):
         assert _rel_err(dots[q], ref_dots[q]) <= TOL[dtype], q
 
 
+# the tile body across spec shapes: 1-4 factors, rq, a sum of products
+BODY_SPECS = {
+    "rq": ((("rq",),), [1.1, 1.0, 2.5]),
+    "matern52 * rq": ((("matern52", "rq"),), [0.9, 1.2, 0.7, 1.5]),
+    "matern12 * rbf * wendland2": ((("matern12", "rbf", "wendland2"),),
+                                   [1.0, 1.0, 0.8, 0.05]),
+    "rbf * matern32 * rq * wendland4": (
+        (("rbf", "matern32", "rq", "wendland4"),),
+        [1.0, 0.5, 1.0, 0.8, 2.0, 0.05]),
+    "0.5*matern32*wendland2 + rbf*rq + matern12": (
+        (("matern32", "wendland2"), ("rbf", "rq"), ("matern12",)),
+        [0.5, 1.0, 0.05, 1.0, 0.7, 1.2, 3.0, 0.3, 1.0]),
+}
+# both feature stages (DK = 4 for d <= 4, 16 above) and their ragged edges
+BODY_DIMS = (1, 2, 3, 4, 5, 9, 16, 17, 385)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("t", (1, 9, 128))
+@pytest.mark.parametrize("d", BODY_DIMS)
+@pytest.mark.parametrize("spec", sorted(BODY_SPECS))
+def test_tile_body_matches_plain_across_specs_and_d(cuda, spec, d, t, dtype):
+    """B1 (the shared tile body) against its plain version for specs of
+    1-4 factors and 1-3 components, d on both sides of each feature
+    stage, ragged m and n."""
+    components, scal = BODY_SPECS[spec]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    Xi, Xj, V, Vrow, R = _inputs(130, 301, d, t, dtype, cuda, seed=d)
+    out = kmvm.kmvm_fused(components, Xi, Xj, V, scalars)
+    torch.cuda.synchronize()
+    ref = kmvm.kmvm_plain(components, Xi, Xj, V, scalars)
+    assert _rel_err(out, ref) <= TOL[dtype]
+    if t == 9:  # B2 and B3 run the same body
+        out2, dots = kmvm.kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars)
+        acc = kmvm.kmvm_fused_chunk(components, Xi, Xj, V, scalars,
+                                    torch.zeros_like(out))
+        torch.cuda.synchronize()
+        ref2, ref_dots = kmvm.kmvm_dots_plain(components, Xi, Xj, V, Vrow, R,
+                                              scalars)
+        assert _rel_err(out2, ref2) <= TOL[dtype]
+        for q in range(4):
+            assert _rel_err(dots[q], ref_dots[q]) <= TOL[dtype], q
+        assert _rel_err(acc, ref) <= TOL[dtype]
+
+
 def test_row_results_do_not_depend_on_launch_rows(cuda):
     """A row's result is bitwise the same in a 512-row and a 1024-row
     launch (the column split depends on n only): a padded serving chunk and
@@ -184,9 +229,9 @@ def test_kmvm_chunk_kernel_matches_plain(cuda, spec, case, t, dtype):
 def test_kmvm_chunk_walk_equals_one_b1_launch(cuda, t, dtype):
     """Chunks of whole 64-column tiles walked through the accumulator give
     the bits of one B1 launch over the same n <= 4096 columns at t > 1 (B1
-    runs one column split there); at t = 1 B1's in-block four-way column
-    split regroups the sum, so a multi-chunk walk agrees within the
-    tolerance and a single chunk bit for bit."""
+    runs one column split there); at t = 1 the final 16-thread tree of each
+    row regroups the sum, so a multi-chunk walk agrees within the tolerance
+    and a single chunk bit for bit."""
     components, scal = SPECS["matern32"]
     scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
     Xi, Xj, V, _, _ = _inputs(300, 4096, 9, t, dtype, cuda, seed=5)
@@ -303,6 +348,36 @@ def test_blocksparse_kernel_matches_plain(cuda, expr, tile_n):
             if B4_SPECS[expr] is None:
                 dense = kmvm.kmvm_fused(comps, Xp, Xp, Vp, sc)
                 assert _rel_err(out, dense) <= TOL[dtype], (t, dtype)
+
+
+@pytest.mark.parametrize("tile_n", B4_TILES, ids=lambda s: f"tile{s[0]}n{s[1]}")
+def test_blocksparse_row_order_changes_no_bits(cuda, tile_n):
+    """B4 launched longest row first (the plan's order) equals B4 launched
+    in plan order (null) and on the identity permutation, bit for bit."""
+    from repro_torch.sparse import kmvm_sparse
+
+    for t in (1, 9, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            comps, Xp, Vp, sc, rp, cols, tile = _b4_problem(
+                "rbf * wendland2 + matern32 * wendland4", 0.15, tile_n[1],
+                tile_n[0], t, dtype, cuda, seed=t)
+            order = kmvm_sparse.longest_row_first(rp.cpu().numpy())
+            assert not np.array_equal(order, np.arange(order.size))
+            runs = [kmvm_sparse.kmvm_blocksparse(
+                comps, Xp, Xp, Vp, sc, rp, cols, tile=tile, row_order=o)
+                for o in (torch.as_tensor(order, device=cuda), None,
+                          torch.arange(order.size, dtype=torch.int32,
+                                       device=cuda))]
+            torch.cuda.synchronize()
+            assert torch.equal(runs[0], runs[1]), (t, dtype)
+            assert torch.equal(runs[0], runs[2]), (t, dtype)
+    with pytest.raises(ValueError):
+        kmvm_sparse.kmvm_blocksparse(comps, Xp, Xp, Vp, sc, rp, cols, tile=tile,
+                                     row_order=torch.as_tensor(order[:-1],
+                                                               device=cuda))
+    with pytest.raises(ValueError):
+        kmvm_sparse.kmvm_blocksparse(comps, Xp, Xp, Vp, sc, rp, cols, tile=tile,
+                                     row_order=torch.as_tensor(order).long().to(cuda))
 
 
 def test_blocksparse_rows_do_not_depend_on_zero_tiles(cuda):
