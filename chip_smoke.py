@@ -9,8 +9,9 @@ caught and skipped):
 2. Build: compile the CUDA kernels from `src/repro_torch/kernels/csrc/`
    with nvcc (sm_90a); print the build seconds, then for each fp32
    instance at t-chunks 1 and 16 its ptxas registers, stack and spill and
-   its SASS counts (`cuobjdump -sass`: LDL/STL, MUFU, barriers, and the
-   instructions and local-memory accesses of the entry loop).
+   its SASS counts (`cuobjdump -sass`: LDL/STL, MUFU, barriers, HMMA
+   tensor-core instructions, and the instructions, local-memory and shared
+   loads and stores of the entry loop and the chunk loop).
 3. Kernels against their plain PyTorch versions on the card: B1
    (`kmvm_fused`) and B2 (`kmvm_fused_dots`) on fp32 and bf16, five kernel
    kinds, ragged m and n, d in {9, 385}, t in {1, 7, 128}, and the main-path
@@ -18,13 +19,15 @@ caught and skipped):
    (fp32) and 5e-2 (bf16) relative to max|out|, as the reference's kernel
    tests use — only the summation order differs. Then each kernel is timed
    with CUDA events at the main-path shapes beside its plain version and
-   its bound: B1 and B2 at (2^16, 2^16, 9, 1) (serving) and (2^17, 2^17,
+   its bounds: B1 and B2 at (2^16, 2^16, 9, 1) (serving) and (2^17, 2^17,
    9, 1) (the distributed path's single-card Lanczos and CG steps), B1 at
-   a 1024-row prediction chunk (t = 128). Last, the per-entry cost table:
-   B1 at (2^16, 2^16, t = 1) for d in {2, 9} and the specs rbf, matern32
-   and matern32 * wendland2, plus matern32 at d = 9, t = 9, in ps per
-   kernel entry (the differences give the cost of one feature, of one
-   epilogue factor and of K @ V).
+   a 1024-row prediction chunk (t = 128), each beside `bound_ms` and
+   `tc_bound_ms` (below). Last, the per-entry cost table: B1 at (2^16,
+   2^16, t = 1) for d in {2, 9} and the specs rbf, matern32 and matern32 *
+   wendland2, plus matern32 at d = 9, t = 9, then B2 and B3 at d = 9,
+   matern32, t = 1 and 9, in ps per kernel entry (the differences give the
+   cost of one feature, of one epilogue factor, of K @ V and of B2's and
+   B3's schedules beside B1's).
 4. Serve: the port's `serve_gp` flow in-process — the houseelectric
    analogue (d = 9) at n = 2^16, matern32 on the `pallas` backend in fp32 at
    fixed hyperparameters (lengthscale sqrt(d), outputscale 1, noise 0.01),
@@ -46,7 +49,7 @@ caught and skipped):
    tolerance; each case launched longest row first (the plan's order) must
    equal the launch in plan order bit for bit. Then B4 is timed at the
    spatial path's shape (n = 2^18, tile 256, t = 1 and t = 9, the plan's
-   launch order) beside its plain version and its bound.
+   launch order) beside its plain version and its two bounds.
 6. Spatial (the `examples/spatial_gp.py` configuration): the clustered 2-D
    field (32 stations, sigma 0.03, dataset seed 0) at n = 2^18 training
    points, `matern32 * wendland2` from noise 0.3 and radius 0.15 on the
@@ -63,7 +66,7 @@ caught and skipped):
    256-row plan tiles, query rows repeated per column segment, t = 1 for
    the mean and t = 100 for the variance) is held against B4's plain
    version on the same operands (2e-4 relative to max|out|) and timed,
-   beside its plain version and its bound (1024 queries against the
+   beside its plain version and its bounds (1024 queries against the
    active tiles' columns). n is cut from the paper's 2^20 (PERF.md).
 7. Cross-check: the MLL value and Eq. 2 gradients on `blocksparse` (B4)
    against the `partitioned` backend on the card at n = 2^13, with the
@@ -79,7 +82,7 @@ caught and skipped):
    chunk at t = 1 (at t = 1 the final 16-thread tree of each row regroups a
    multi-chunk walk's sum, held to the tolerance instead). Then B3 is timed
    at the shape of one ring step of eight cards at n = 2^20 (rows = chunk =
-   2^17, d = 9, t = 1 and t = 9) beside its plain version and its bound.
+   2^17, d = 9, t = 1 and t = 9) beside its plain version and its two bounds.
 9. Distributed (the paper's Section 3 engine, `repro_torch.core.
    distributed`) as a one-rank NCCL group (a `file://` store in a temporary
    directory; no network): `repro_torch.launch.train`'s gp-exact-1m path
@@ -106,7 +109,13 @@ Bounds: a kernel's `bound_ms` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 67 TFLOP/s (H100 SXM fp32 outside the tensor cores, NVIDIA's data sheet);
 B4 counts the operations of the entries its plan holds active; B3 counts
-B1's operations and reads its accumulator once besides.
+B1's operations and reads its accumulator once besides. `tc_bound_ms` is
+the floor that knows the tensor cores, the larger of four times: the two
+products (2d + 2t operations per entry) at 495 / 3 TFLOP/s (TF32 split in
+three), the other operations at 67 TFLOP/s, the MUFU operations (exp,
+sqrt and log, each counted per kind) at 16 per SM per clock on 132 SMs at
+the card's maximum SM clock (`nvidia-smi --query-gpu=clocks.max.sm`), and
+the bytes at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -137,12 +146,20 @@ RING_STEP = 1 << 17        # rows = chunk of one ring step, 8 cards at 2^20
 DIST_N = 1 << 17           # rows of the distributed path's single-card pass
 DEV = "cuda"
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_SPLIT_FLOPS = 495e12 / 3   # 3xTF32: three TF32 products per product
 PEAK_BYTES = 3.35e12
+SMS = 132
+MUFU_PER_SM_CLOCK = 16
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # operations per (i, j) pair of the epilogue, by kernel kind (each add, mul,
 # max, sqrt and exp counts one)
 KIND_OPS = {"rbf": 2, "matern12": 3, "matern32": 6, "matern52": 9, "rq": 5,
             "wendland2": 8, "wendland4": 12}
+# MUFU operations per (i, j) pair by kind: exp, and log for rq; the sqrt of
+# d2 counts once per pair when any factor needs r
+KIND_MUFU = {"rbf": 1, "matern12": 1, "matern32": 1, "matern52": 1, "rq": 2,
+             "wendland2": 0, "wendland4": 0}
+NEEDS_R = {"matern12", "matern32", "matern52", "wendland2", "wendland4"}
 
 
 def log(msg: str) -> None:
@@ -228,49 +245,94 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _bound_ms(components, m, n, d, t, itemsize, dots: bool,
-              entries: int | None = None, extra_bytes: int = 0) -> tuple:
-    """(least ms the card could take, "operations" or "bytes"). `entries`:
-    the kernel entries the work holds (m n for the dense kernels, the
-    plan's active entries for B4)."""
+_SM_CLOCK_HZ = []
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi (read once)."""
+    if not _SM_CLOCK_HZ:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.split()[0]
+        _SM_CLOCK_HZ.append(float(mhz) * 1e6)
+    return _SM_CLOCK_HZ[0]
+
+
+def _bounds(components, m, n, d, t, itemsize, dots: bool,
+            entries: int | None = None, extra_bytes: int = 0) -> dict:
+    """The least ms the card could take for one launch: `bound_ms` on fp32
+    CUDA cores (the larger of the operations at 67 TFLOP/s and the bytes,
+    and `bound_by` which), and `tc_bound_ms` with the two products on the
+    tensor cores (the largest of the products at 3xTF32, the other
+    operations at 67 TFLOP/s, the MUFU operations and the bytes).
+    `entries`: the kernel entries the work holds (m n for the dense
+    kernels, the plan's active entries for B4)."""
+    count = m * n if entries is None else entries
     ops_pair = 2 * d + 2 * t + 4 + sum(
         2 + sum(1 + KIND_OPS[k] for k in kinds) for kinds in components)
-    flops = ops_pair * (m * n if entries is None else entries)
     nbytes = (m + n) * d * itemsize + n * t * itemsize + m * t * 4 + extra_bytes
     if dots:
         nbytes += 2 * m * t * 4 + 4 * t * 4
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops, t_bytes = ops_pair * count / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    kinds = [k for c in components for k in c]
+    mufu = sum(KIND_MUFU[k] for k in kinds) + any(k in NEEDS_R for k in kinds)
+    products = 2 * d + 2 * t
+    tc = max(products * count / PEAK_TF32_SPLIT_FLOPS,
+             (ops_pair - products) * count / PEAK_FP32_FLOPS,
+             mufu * count / (MUFU_PER_SM_CLOCK * SMS * max_sm_clock_hz()),
+             t_bytes)
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tc_bound_ms": 1e3 * tc}
 
 
 # the per-entry cost table: B1 at one launch shape, (d, spec, t) per row;
-# the differences give one feature's, one epilogue factor's and K @ V's cost
+# the differences give one feature's, one epilogue factor's and K @ V's cost;
+# then B2 and B3 beside B1 at d 9, matern32, t 1 and 9
 COST_N = 1 << 16
 COST_SPECS = {"rbf": ((("rbf",),), [1.0, 1.0]),
               "matern32": ((("matern32",),), [1.0, 1.0]),
               "matern32 * wendland2": ((("matern32", "wendland2"),),
                                        [1.0, 1.0, 0.25])}
-COST_CASES = tuple((d, spec, 1) for d in (2, 9) for spec in COST_SPECS) + (
-    (9, "matern32", 9),)
+COST_CASES = tuple(("kmvm", d, spec, 1) for d in (2, 9) for spec in COST_SPECS) + (
+    ("kmvm", 9, "matern32", 9),) + tuple(
+    (k, 9, "matern32", t) for k in ("kmvm_dots", "kmvm_chunk") for t in (1, 9))
+KERNEL_LABEL = {"kmvm": "B1", "kmvm_dots": "B2", "kmvm_chunk": "B3"}
+
+
+def kernel_call(kmvm, name, components, X, V, scalars, rows=None):
+    """A no-argument call of B1, B2 or B3 over rows X[:rows] (all rows by
+    default) against all of X: the residual and the row view are V's rows,
+    B3 accumulates into a zero buffer it owns."""
+    Xi = X if rows is None else X[:rows].contiguous()
+    Vi = V[:Xi.shape[0]].contiguous()
+    if name == "kmvm":
+        return lambda: kmvm.kmvm_fused(components, Xi, X, V, scalars)
+    if name == "kmvm_dots":
+        return lambda: kmvm.kmvm_fused_dots(components, Xi, X, V, Vi, Vi, scalars)
+    acc = torch.zeros((Xi.shape[0], V.shape[1]), device=X.device)
+    return lambda: kmvm.kmvm_fused_chunk(components, Xi, X, V, scalars, acc)
 
 
 def entry_cost_table() -> list:
-    """ps per kernel entry of B1 at (COST_N, COST_N, d, t) for each case of
+    """ps per kernel entry at (COST_N, COST_N, d, t) for each case of
     COST_CASES (inputs N(0, 1/d) per feature, so distances are O(1))."""
     from repro_torch.kernels import kmvm
 
     rows = []
-    for d, spec, t in COST_CASES:
+    for name, d, spec, t in COST_CASES:
         components, scal = COST_SPECS[spec]
         scalars = torch.tensor(scal, dtype=torch.float32, device=DEV)
         g = torch.Generator(device=DEV).manual_seed(17)
         X = torch.randn((COST_N, d), generator=g, device=DEV) / math.sqrt(d)
         V = torch.randn((COST_N, t), generator=g, device=DEV)
-        ms = _time_ms(lambda: kmvm.kmvm_fused(components, X, X, V, scalars), 3)
+        ms = _time_ms(kernel_call(kmvm, name, components, X, V, scalars), 3)
         ps = ms * 1e9 / COST_N**2
-        rows.append({"d": d, "spec": spec, "t": t, "ms": ms, "ps_per_entry": ps})
-        log(f"[cost] B1 ({COST_N}, {COST_N}, d {d}, t {t}) {spec}: {ms:.3f} ms, "
-            f"{ps:.3f} ps per entry")
+        rows.append({"kernel": name, "d": d, "spec": spec, "t": t, "ms": ms,
+                     "ps_per_entry": ps})
+        log(f"[cost] {KERNEL_LABEL[name]} ({COST_N}, {COST_N}, d {d}, t {t}) "
+            f"{spec}: {ms:.3f} ms, {ps:.3f} ps per entry")
     return rows
 
 
@@ -304,6 +366,7 @@ def _short(fn: str) -> str:
     """'kmvm_kernel<float, 1>' from a demangled template instance."""
     for junk in ("(anonymous namespace)::", "<unnamed>::", "(int)", "void "):
         fn = fn.replace(junk, "")
+    fn = fn.replace("(bool)0", "false").replace("(bool)1", "true")
     return fn.replace("__nv_bfloat16", "bf16").split("(")[0].replace(" ", "")
 
 
@@ -339,9 +402,10 @@ def _ptxas_table(lines: list) -> dict:
 
 
 def _sass_table(libs: list) -> dict:
-    """Per kernel of the fp32 instances: SASS instructions, LDL/STL, MUFU and
-    BAR counts, and the innermost and outermost loops holding MUFU ops (a
-    loop: from a backward branch's target to the branch)."""
+    """Per kernel of the fp32 instances: SASS instructions, LDL/STL, MUFU,
+    BAR and HMMA (tensor-core) counts, and the innermost and outermost
+    loops holding MUFU ops with their LDS/STS counts (a loop: from a
+    backward branch's target to the branch)."""
     import re
 
     tool = _tool("cuobjdump")
@@ -365,7 +429,7 @@ def _sass_table(libs: list) -> dict:
     out = {}
     for raw, ins in funcs.items():
         name = _short(names[raw])
-        if "bf16" in name or not re.search(r"<float,(1|16)(,\d+)?>", name):
+        if "bf16" in name or not re.search(r"<float,(1|16)(,\w+)*>", name):
             continue
 
         def count(sub, lo=-1, hi=1 << 62):
@@ -381,13 +445,16 @@ def _sass_table(libs: list) -> dict:
             return {"instructions": count(r".", lo, hi),
                     "mufu": count(r"\bMUFU\b", lo, hi),
                     "ldl_stl": count(r"\b(LDL|STL)\b", lo, hi),
-                    "bar": count(r"\bBAR\b", lo, hi)}
+                    "bar": count(r"\bBAR\b", lo, hi),
+                    "hmma": count(r"\bHMMA\b", lo, hi),
+                    "lds": count(r"\bLDS\b", lo, hi),
+                    "sts": count(r"\bSTS\b", lo, hi)}
 
         with_mufu = [(lo, hi) for _, lo, hi in sorted(loops)
                      if count(r"\bMUFU\b", lo, hi)]
         out[name] = {"instructions": len(ins), "ldl": count(r"\bLDL\b"),
                      "stl": count(r"\bSTL\b"), "mufu": count(r"\bMUFU\b"),
-                     "bar": count(r"\bBAR\b"),
+                     "bar": count(r"\bBAR\b"), "hmma": count(r"\bHMMA\b"),
                      # innermost loop with MUFU ops: the per-entry code;
                      # outermost: the walk over column chunks
                      "entry_loop": summary(*with_mufu[0]) if with_mufu else None,
@@ -479,11 +546,12 @@ def _time_row(name, shape, components, kern, plain, reps, plain_reps) -> dict:
         raise SystemExit(f"[kernels] MISMATCH {name} {shape}: {err:.2e}")
     ms = _time_ms(kern, reps)
     plain_ms = _time_ms(plain, plain_reps)
-    bound, bound_by = _bound_ms(components, *shape, 4, name == "kmvm_dots")
-    log(f"[kernels] time {name} {shape}: {ms:.3f} ms (bound {bound:.3f} "
-        f"ms, {bound / ms:.1%} of it), plain {plain_ms:.3f} ms, rel err {err:.2e}")
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "rel_err": err}
+    b = _bounds(components, *shape, 4, name == "kmvm_dots")
+    log(f"[kernels] time {name} {shape}: {ms:.3f} ms (bound {b['bound_ms']:.3f} "
+        f"ms, {b['bound_ms'] / ms:.1%} of it; tc bound {b['tc_bound_ms']:.3f} "
+        f"ms), plain {plain_ms:.3f} ms, rel err {err:.2e}")
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, **b,
+            "rel_err": err}
 
 
 def time_square(components, scalars, X, v, r, reps=3, plain_reps=1) -> dict:
@@ -586,7 +654,7 @@ def _b4_problem(expr, radius, X, t, dtype, tile, seed):
 def time_b4_spatial(X_spatial) -> tuple:
     """B4 at the spatial path's shape (2^18 Morton-sorted points, tile 256,
     the training plan at radius 0.15 + 10% margin, lengthscale 0.693), t = 1
-    and 9, against its plain version, timed beside it and its bound:
+    and 9, against its plain version, timed beside it and its two bounds:
     (rows, {t: max abs err})."""
     from repro_torch.core.kernels_math import init_kernel_params
     from repro_torch.kernels.ops import fused_pass_or_none
@@ -635,15 +703,16 @@ def time_b4_spatial(X_spatial) -> tuple:
             raise SystemExit(f"[blocksparse] MISMATCH main path t={t}: {err:.2e}")
         ms = _time_ms(kern, reps)
         plain_ms = _time_ms(plain, 1)
-        bound, bound_by = _bound_ms(
+        b = _bounds(
             ppass.components, n, n, d, t, 4, False, entries=entries,
             extra_bytes=4 * (plan.num_pairs + plan.num_tiles + 1) - n * d * 4)
         rows.append({"shape": [n, n, d, t], "entries": entries, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by})
+                     "plain_ms": plain_ms, **b})
         log(f"[blocksparse] time B4 (n={n}, d={d}, t={t}, tile {plan.tile}): "
-            f"{ms:.3f} ms (bound {bound:.3f} ms, {bound / ms:.1%} of it), "
-            f"plain {plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+            f"{ms:.3f} ms (bound {b['bound_ms']:.3f} ms, "
+            f"{b['bound_ms'] / ms:.1%} of it; tc bound {b['tc_bound_ms']:.3f} "
+            f"ms), plain {plain_ms:.3f} ms; rel err {err:.2e} abs "
+            f"{abs_err[t]:.2e}")
     return rows, abs_err
 
 
@@ -801,7 +870,7 @@ def phase_spatial(X, y, Xte, lte) -> dict:
         # columns of its active tiles (each query once, whatever the launch
         # repeats per column segment), plus the CSR it reads
         ncols = int(torch.unique(args[6]).numel()) * kwargs["tile"]
-        cross_bound[t] = _bound_ms(
+        cross_bound[t] = _bounds(
             args[0], chunk.shape[0], ncols, chunk.shape[1], t, 4, False,
             extra_bytes=4 * (args[5].numel() + args[6].numel()))
         if not cross_err[t] <= TOL[torch.float32]:
@@ -817,7 +886,7 @@ def phase_spatial(X, y, Xte, lte) -> dict:
         f"path {total_s:.1f} s; launches {launches} (B1/B2 {other}); "
         f"cross_matvec of a sorted 1024-query chunk (t: ms) {cross_ms}, "
         f"its B4 launch vs plain (t: rel err) {cross_err}, plain (t: ms) "
-        f"{cross_plain_ms}, bound (t: ms, by) {cross_bound}")
+        f"{cross_plain_ms}, bounds (t: ms) {cross_bound}")
     if launches["kmvm_blocksparse"] <= 0:
         raise SystemExit("[spatial] B4 was never launched on the main path")
     return {"train_s": train_s, "train_b4": train_b4, "loss": res.loss_trace,
@@ -917,13 +986,12 @@ def time_ring_step() -> tuple:
                                                     scalars, acc), reps)
         plain_ms = _time_ms(lambda: kmvm.kmvm_chunk_plain(
             components, Xi, Xj, V, scalars, acc), 1)
-        bound, bound_by = _bound_ms(components, n, n, d, t, 4, False,
-                                    extra_bytes=n * t * 4)
-        rows.append({"shape": [n, n, d, t], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": bound_by})
+        b = _bounds(components, n, n, d, t, 4, False, extra_bytes=n * t * 4)
+        rows.append({"shape": [n, n, d, t], "ms": ms, "plain_ms": plain_ms, **b})
         log(f"[chunk] time B3 ring step ({n}, {n}, {d}, {t}): {ms:.3f} ms "
-            f"(bound {bound:.3f} ms, {bound / ms:.1%} of it), plain "
-            f"{plain_ms:.3f} ms; rel err {err:.2e} abs {abs_err[t]:.2e}")
+            f"(bound {b['bound_ms']:.3f} ms, {b['bound_ms'] / ms:.1%} of it; "
+            f"tc bound {b['tc_bound_ms']:.3f} ms), plain {plain_ms:.3f} ms; "
+            f"rel err {err:.2e} abs {abs_err[t]:.2e}")
     return rows, abs_err
 
 
@@ -1205,6 +1273,7 @@ def main() -> None:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
+            "tc_bound_ms": main_row["tc_bound_ms"],
             "library_ms": None, "shape": main_row["shape"],
             "timings": kern["rows"][kname]})
     row = b4["rows"][0]
@@ -1217,7 +1286,8 @@ def main() -> None:
         "fit_launches": spatial["fit_b4"],
         "max_abs_err": b4["abs_err"][1], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
+        "bound_by": row["bound_by"], "tc_bound_ms": row["tc_bound_ms"],
+        "library_ms": None,
         "shape": row["shape"], "entries": row["entries"],
         "timings": b4["rows"], "cross_chunk_ms": spatial["cross_ms"],
         "cross_chunk_rel_err": spatial["cross_err"],
@@ -1233,7 +1303,8 @@ def main() -> None:
         "solve_launches": dist_run["solve_iters"],
         "max_abs_err": b3["abs_err"][9], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
+        "bound_by": row["bound_by"], "tc_bound_ms": row["tc_bound_ms"],
+        "library_ms": None,
         "shape": row["shape"], "timings": b3["rows"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,10 +37,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # per source (csrc/<stem>.cu): its C entry points, (argtypes, restype)
 ENTRY_POINTS = {
     "kmvm": {
-        "kmvm_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                      _P], _I),
-        "kmvm_dots_fwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                           _I, _I, _P], _I),
+        "kmvm_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P], _I),
+        "kmvm_dots_fwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _P], _I),
         "kmvm_acc_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                           _P], _I),
         "kmvm_error_string": ([_I], ctypes.c_char_p),

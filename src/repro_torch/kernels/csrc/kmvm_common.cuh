@@ -1,35 +1,36 @@
-// The tile body shared by the fused kernel-MVM kernels (kmvm.cu: B1, B2, B3)
+// The pieces shared by the fused kernel-MVM kernels (kmvm.cu: B1, B2, B3)
 // and the block-sparse kernel (kmvm_sparse.cu: B4), for NVIDIA Hopper
-// (sm_90a). The counterpart of `_kernel_tile` (src/repro/kernels/kmvm.py:81)
-// and of the same arithmetic in `_bs_kernel` (src/repro/sparse/kmvm_sparse.py:44):
+// (sm_90a): the spec resolved per block and the fp32 epilogue, the cp.async
+// staging of features and RHS rows, and B4's tile body `row_tile`. The
+// counterpart of `_kernel_tile` (src/repro/kernels/kmvm.py:81) and of the
+// same arithmetic in `_bs_kernel` (src/repro/sparse/kmvm_sparse.py:44):
 //   d2 = max(|xi|^2 + |xj|^2 - 2 xi.xj, 0)             (fp32, norms from the
 //                                                        operand-dtype values)
 //   K  = sum_c w_c prod_f phi_cf(q_cf * d2)             (fp32 epilogue)
 //   out[i, :] += K[i, j] * V[j, :]                      (fp32 accumulation)
 //
-// One thread block (256 threads) owns BM = 64 output rows and walks a
-// sequence of BN = 64-column chunks of Xj and V in an in-block loop (the
-// chunks come from a column walker: every column tile for B1/B2/B3, the
-// active column tiles of the row's sparsity pattern for B4), so the output
-// tile stays in registers for the whole reduction and the kernel slab never
-// reaches device memory. Each thread owns a 4x4 micro-tile of the 64x64
-// chunk (rows 4 ty + p, columns 4 tx + q).
+// The epilogue is the same code in every kernel: the spec is resolved once
+// per block (`resolve_spec`: the kinds, the factor counts, the scalars in
+// `scalar_layout` order and sqrt(q_cf) go into shared memory), and
+// `epilogue<N>` runs component -> factor -> N entries, so a factor's kind
+// is branched on once per pass (a block-uniform branch), the N exp/sqrt
+// chains are independent and interleave, and r = sqrt(d2) is taken once per
+// entry when any factor needs it (r_cf = sqrt(q_cf) r in place of
+// sqrt(q_cf d2): a change of rounding only). IEEE expf/sqrtf/log1pf.
+//
+// B4's body (`row_tile`, below; B1-B3 have their own tensor-core body in
+// kmvm.cu). One thread block (256 threads) owns BM = 64 output rows and
+// walks the active BN = 64-column chunks of its row's sparsity pattern in an
+// in-block loop, so the output tile stays in registers for the whole
+// reduction and the kernel slab never reaches device memory. Each thread
+// owns a 4x4 micro-tile of the 64x64 chunk (rows 4 ty + p, columns 4 tx + q).
 //
 // What bounds it. Per entry the work is the cross term (2d operations), the
 // epilogue (an exp, and a sqrt for the Matern and Wendland kinds, per
 // factor) and K @ V (2t), on fp32 CUDA cores; the bytes are negligible. The
-// cost is instruction issue, so the design keeps every instruction that is
-// not arithmetic out of the entry loop:
+// cost is instruction issue and latency, so the design keeps every
+// instruction that is not arithmetic out of the entry loop:
 //
-// - The spec is resolved once per block (`resolve_spec`): the kinds, the
-//   factor counts, the scalars in `scalar_layout` order and sqrt(q_cf) go
-//   into shared memory. The epilogue runs component -> factor -> the 16
-//   entries of the micro-tile, so a factor's kind is branched on once per
-//   micro-tile (a block-uniform branch), the 16 exp/sqrt chains are
-//   independent and interleave, and r = sqrt(d2) is taken once per entry
-//   when any factor needs it (r_cf = sqrt(q_cf) r in place of
-//   sqrt(q_cf d2): a change of rounding only). IEEE expf/sqrtf/log1pf: the
-//   fp32 path is true fp32.
 // - Features and RHS rows are double-buffered in shared memory with
 //   cp.async (fp32 operands; bf16 operands are staged by plain loads): the
 //   next chunk's loads are in flight while the current chunk runs. The
@@ -46,13 +47,10 @@
 //   t-chunk layout (TCH = 16 or 128 output columns per pass), where each
 //   thread owns its outputs and folds the columns in ascending order: two
 //   barriers per chunk.
-// - Occupancy: the cost is latency as much as issue, so the t = 1
-//   instances are held to 80 registers for three blocks (24 warps) per SM
-//   and evaluate the epilogue in two passes of 8 entries, each folded into
-//   K @ V at once. ptxas then keeps a few values in local memory, none in
-//   the entry loop: on an H100 this is 4% faster than two blocks with
-//   16-entry passes at d = 9, while at t = 9 the 16-entry passes at two
-//   blocks are the faster, and stay.
+// - Occupancy: the t = 1 instances are held to 80 registers for three
+//   blocks (24 warps) per SM and evaluate the epilogue in two passes of 8
+//   entries, each folded into K @ V at once; at t > 1, two blocks with
+//   16-entry passes.
 //
 // Ragged rows, columns and d are masked in the kernel; nothing is padded in
 // device memory. Operands are fp32 or bf16 (template parameter T); all math
@@ -60,11 +58,7 @@
 // bf16 before the K @ V product, as the reference's bf16 matmul operand is.
 // No atomics: every output row is written by exactly one block, and its sum
 // runs in an order fixed by the columns alone (not by m), so a launch gives
-// the same result on every run and a row the same bits in any launch. With
-// ACC (B3) the output tile is the running accumulator: the block seeds its
-// registers from `out` (at t = 1 only the first of the 16 threads of a row
-// group) and writes the tile back in place, so at t > 1 a walk over whole
-// 64-column chunks continues the same register sum a single launch forms.
+// the same result on every run and a row the same bits in any launch.
 
 #pragma once
 
@@ -236,29 +230,29 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
 }
 
 // features [k0, k0 + kw) of rows [r0, r0 + 64) of X (row-major, d columns)
-// into dst[k * LDP + r]; rows at or past rlim read as zero
-template <typename T>
+// into dst[k * LD + r], by NTH threads; rows at or past rlim read as zero
+template <int LD = LDP, int NTH = NT, typename T>
 __device__ __forceinline__ void stage_features(float* dst, const T* __restrict__ X,
                                                int r0, int rlim, int k0, int kw,
                                                int d, int tid) {
-  for (int e = tid; e < 64 * kw; e += NT) {
+  for (int e = tid; e < 64 * kw; e += NTH) {
     const int k = e >> 6, r = e & 63;
     const bool ok = r0 + r < rlim;
-    stage(dst + k * LDP + r, X + (ok ? (size_t)(r0 + r) * d + k0 + k : 0), ok);
+    stage(dst + k * LD + r, X + (ok ? (size_t)(r0 + r) * d + k0 + k : 0), ok);
   }
 }
 
 // RHS columns [c0, c0 + tcw) of rows [j0, j0 + 64) of V (row-major, t
-// columns) into dst[c * LDP + j] (dst[j] when TCH = 1); rows at or past
-// jlim read as zero
-template <typename T, int TCH>
+// columns) into dst[c * LD + j] (dst[j] when TCH = 1), by NTH threads; rows
+// at or past jlim read as zero
+template <int TCH, int LD = LDP, int NTH = NT, typename T>
 __device__ __forceinline__ void stage_rhs(float* dst, const T* __restrict__ V,
                                           int j0, int jlim, int c0, int tcw,
                                           int t, int tid) {
-  for (int e = tid; e < 64 * tcw; e += NT) {
+  for (int e = tid; e < 64 * tcw; e += NTH) {
     const int c = e >> 6, j = e & 63;
     const bool ok = j0 + j < jlim;
-    stage(dst + (TCH == 1 ? j : c * LDP + j),
+    stage(dst + (TCH == 1 ? j : c * LD + j),
           V + (ok ? (size_t)(j0 + j) * t + c0 + c : 0), ok);
   }
 }
@@ -317,30 +311,15 @@ __device__ __forceinline__ void cross_term(const float* xi, const float* xj,
   }
 }
 
-// Column walker of the dense kernels: chunks [(begin + k) BN, + BN) of the
-// Xj column tiles [begin, end), masked at n.
-struct DenseCols {
-  int begin, end, n;
-  __device__ __forceinline__ int count() const { return end - begin; }
-  __device__ __forceinline__ void chunk(int k, int& j0, int& jlim) const {
-    j0 = (begin + k) * BN;
-    jlim = n;
-  }
-};
-
-// One block: out rows [i0, min(i0 + BM, mlim)) = K(Xi rows, Xj[walked
-// columns]) @ V[walked columns]; with DOTS, also the row tile's CG partials
-// [<Kv,v>, <r,v>, <r,r>, <v,v>] per column into dots[0..4t); with ACC,
-// out rows += that product instead. DK: features per pipeline stage (4 or
-// 16); d > DK walks (column chunk, feature chunk) stages and reloads the
-// Xi feature chunk with each.
-template <typename T, int TCH, int DK, bool DOTS, class Cols, bool ACC = false>
+// One block of B4: out rows [i0, min(i0 + BM, mlim)) = K(Xi rows,
+// Xj[walked columns]) @ V[walked columns] on fp32 CUDA cores. DK: features
+// per pipeline stage (4 or 16); d > DK walks (column chunk, feature chunk)
+// stages and reloads the Xi feature chunk with each.
+template <typename T, int TCH, int DK, class Cols>
 __device__ __forceinline__ void row_tile(
     const T* __restrict__ Xi, const T* __restrict__ Xj, const T* __restrict__ V,
-    const float* __restrict__ Vrow, const float* __restrict__ R,
     const float* __restrict__ scal, const KSpec& sp, float* __restrict__ out,
-    float* __restrict__ dots, int i0, int mlim, int d, int t,
-    const Cols& cols) {
+    int i0, int mlim, int d, int t, const Cols& cols) {
   static_assert(BM == 64 && BN == 64, "the staging and the 4x4 micro-tile assume 64");
   constexpr int VS = rhs_floats<TCH>();
   constexpr int EH = TCH == 16 ? 16 : 8;  // entries per epilogue pass
@@ -348,7 +327,7 @@ __device__ __forceinline__ void row_tile(
   extern __shared__ __align__(16) float smem[];
   float* xi_s = smem;                  // [2][DK][LDP]
   float* xj_s = xi_s + 2 * DK * LDP;   // [2][DK][LDP]
-  float* v_s = xj_s + 2 * DK * LDP;    // [2][VS]; the finished tile for DOTS
+  float* v_s = xj_s + 2 * DK * LDP;    // [2][VS]
   float* k_s = v_s + 2 * VS;           // [BM][LDP] when TCH > 1
   Spec* spec = reinterpret_cast<Spec*>(k_s + (TCH > 1 ? BM * LDP : 0));
 
@@ -377,7 +356,7 @@ __device__ __forceinline__ void row_tile(
     const int k0 = kc * DK, kw = min(DK, d - k0);
     stage_features(xj_s + (s & 1) * DK * LDP, Xj, j0, jlim, k0, kw, d, tid);
     if (nkc > 1) stage_features(xi_s + (s & 1) * DK * LDP, Xi, i0, mlim, k0, kw, d, tid);
-    if (kc == 0) stage_rhs<T, TCH>(v_s + (kch & 1) * VS, V, j0, jlim, c0, tcw, t, tid);
+    if (kc == 0) stage_rhs<TCH>(v_s + (kch & 1) * VS, V, j0, jlim, c0, tcw, t, tid);
     cp_async_commit();
   };
 
@@ -388,16 +367,7 @@ __device__ __forceinline__ void row_tile(
 #pragma unroll
     for (int p = 0; p < RPT; ++p)
 #pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        float a0 = 0.0f;
-        if (ACC) {
-          const int r = TCH == 1 ? 4 * ty + p : rt * RPT + p;
-          const int c = TCH == 1 ? 0 : cl + CL * q;
-          if ((TCH > 1 || tx == 0) && i0 + r < mlim && c < tcw)
-            a0 = out[(size_t)(i0 + r) * t + c0 + c];
-        }
-        acc[p][q] = a0;
-      }
+      for (int q = 0; q < CPT; ++q) acc[p][q] = 0.0f;
 
     int j0 = 0, jlim = 0;
     if (nst > 0) {
@@ -503,7 +473,6 @@ __device__ __forceinline__ void row_tile(
     cp_async_wait_all();  // nothing in flight (the Xi tile when nst = 0)
     __syncthreads();      // every thread is done with v_s and k_s
 
-    float* fin = v_s;  // the finished (BM, TCH) tile, for the dots
     if constexpr (TCH == 1) {
       // the 16 threads of a row group (lanes tx of a half-warp) combine
       // their 4 row sums by a fixed tree: xor 8 halves the rows, xor 4
@@ -519,10 +488,7 @@ __device__ __forceinline__ void row_tile(
       v += __shfl_xor_sync(full, v, 2);
       v += __shfl_xor_sync(full, v, 1);
       const int r = 4 * ty + (h8 ? 2 : 0) + (h4 ? 1 : 0);
-      if ((tx & 3) == 0) {
-        if (i0 + r < mlim) out[(size_t)(i0 + r) * t + c0] = v;
-        if (DOTS) fin[r] = v;
-      }
+      if ((tx & 3) == 0 && i0 + r < mlim) out[(size_t)(i0 + r) * t + c0] = v;
     } else {
 #pragma unroll
       for (int p = 0; p < RPT; ++p) {
@@ -531,33 +497,8 @@ __device__ __forceinline__ void row_tile(
         for (int q = 0; q < CPT; ++q) {
           const int c = cl + CL * q;
           if (i0 + r < mlim && c < tcw) out[(size_t)(i0 + r) * t + c0 + c] = acc[p][q];
-          if (DOTS) fin[r * TCH + c] = acc[p][q];
         }
       }
-    }
-
-    if (DOTS) {
-      __syncthreads();
-      if (tid < tcw) {
-        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-        const int rows = min(BM, mlim - i0);
-        for (int r = 0; r < rows; ++r) {
-          const size_t idx = (size_t)(i0 + r) * t + c0 + tid;
-          const float kv = fin[r * TCH + tid];
-          const float vr = Vrow[idx];
-          const float rr = R[idx];
-          s0 += kv * vr;
-          s1 += rr * vr;
-          s2 += rr * rr;
-          s3 += vr * vr;
-        }
-        float* dp = dots + c0 + tid;
-        dp[0] = s0;
-        dp[(size_t)t] = s1;
-        dp[2 * (size_t)t] = s2;
-        dp[3 * (size_t)t] = s3;
-      }
-      __syncthreads();  // before the next column chunk restages v_s
     }
   }
 }

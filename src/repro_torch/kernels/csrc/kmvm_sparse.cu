@@ -81,8 +81,7 @@ kmvm_bs_kernel(const T* __restrict__ Xi, const T* __restrict__ Xj,
   const int p0 = row_ptr[r];
   const PairCols pc{cols, p0, row_ptr[r + 1] - p0, ctile,
                     (ctile + BN - 1) / BN, n};
-  row_tile<T, TCH, DK, false>(Xi, Xj, V, nullptr, nullptr, scal, sp, out,
-                              nullptr, i0, mlim, d, t, pc);
+  row_tile<T, TCH, DK>(Xi, Xj, V, scal, sp, out, i0, mlim, d, t, pc);
 }
 
 template <typename T, int TCH, int DK>

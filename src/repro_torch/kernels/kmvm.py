@@ -1,12 +1,14 @@
 """Fused distance -> kernel-sum -> MVM: the CUDA kernels and their plain
 PyTorch versions.
 
-Three kernels live in `csrc/kmvm.cu` (see the note at its top):
+Three wrappers over the kernels of `csrc/kmvm.cu` (see the note at its top):
 
     kmvm_fused       out = [sum_c w_c prod_f phi_cf(q_cf d2(Xi, Xj))] @ V
                      (replaces `repro.kernels.kmvm.kmvm_pallas`)
     kmvm_fused_dots  the same plus the CG dot block
-                     [<Kv, v>, <r, v>, <r, r>, <v, v>] per RHS column
+                     [<Kv, v>, <r, v>, <r, r>, <v, v>] per RHS column:
+                     kmvm_fused's split launch, whose split-sum kernel
+                     also takes the dots
                      (replaces `repro.kernels.kmvm.kmvm_pallas_dots`)
     kmvm_fused_chunk acc += the same product over one chunk of columns,
                      acc updated in place: one step of the distributed
@@ -16,8 +18,10 @@ Three kernels live in `csrc/kmvm.cu` (see the note at its top):
 Inputs arrive pre-scaled by the pass's reference lengthscale, V by the
 base weight, in the operand dtype (fp32 or bf16); the component structure
 is a static tuple of factor-kind tuples and its hyperparameters a flat fp32
-scalar vector in `scalar_layout` order. The math is fp32 at any operand
-dtype and the outputs are fp32.
+scalar vector in `scalar_layout` order. The outputs are fp32 at any
+operand dtype: the epilogue and the running sums are IEEE fp32, and the
+two products run on the tensor cores in 3xTF32 (fp32 operands split into
+two TF32 parts; bf16 operands are exact in TF32), about fp32's accuracy.
 
 Each wrapper dispatches on where its tensors lie: a CPU tensor goes to the
 plain version (`kmvm_plain`, `kmvm_dots_plain`, `kmvm_chunk_plain`), a
@@ -200,16 +204,31 @@ def _column_split(m: int, n: int, t: int) -> tuple[int, int]:
     """(nsplit, tiles_per_split) of `kmvm_fused`'s column range.
 
     The split fills the card when the row tiles alone are too few (a
-    1024-row prediction chunk). It depends on n only, so a row's result is
-    bitwise the same whatever the number of rows in the launch (a padded
-    serving chunk and an unchunked call agree exactly); only a partial
-    buffer above 1 GiB makes it coarser.
+    1024-row prediction chunk, B2's 1024 row tiles at 2^16 rows). It
+    depends on n only, so a row's result is bitwise the same whatever the
+    number of rows in the launch (a padded serving chunk and an unchunked
+    call agree exactly); only a partial buffer above 1 GiB makes it
+    coarser.
     """
     ntiles = -(-n // _COL_TILE)
     per = _SPLIT_TILES
     while -(-ntiles // per) * m * t * 4 > (1 << 30) and per < ntiles:
         per *= 2
     return -(-ntiles // per), per
+
+
+def _split_buffer(nsplit, m, t, device):
+    """The kernels' scratch for nsplit > 1 partial outputs (nsplit, m, t)
+    fp32, which the split-sum kernel adds in split order; None (a null
+    pointer) for one split, which writes the output itself. The caller
+    holds it until the launch is enqueued."""
+    if nsplit == 1:
+        return None
+    return torch.empty((nsplit, m, t), dtype=torch.float32, device=device)
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
 
 
 def kmvm_fused(components, Xi, Xj, V, scalars) -> torch.Tensor:
@@ -226,25 +245,25 @@ def kmvm_fused(components, Xi, Xj, V, scalars) -> torch.Tensor:
     if m == 0 or n == 0:
         return torch.zeros((m, t), dtype=torch.float32, device=Xi.device)
     nsplit, per = _column_split(m, n, t)
-    part = torch.empty((nsplit, m, t), dtype=torch.float32, device=Xi.device)
+    out = torch.empty((m, t), dtype=torch.float32, device=Xi.device)
+    part = _split_buffer(nsplit, m, t, Xi.device)
     lib = build.library()
     code = lib.kmvm_fwd(
         dtype_code, Xi.data_ptr(), Xj.data_ptr(), V.data_ptr(),
         scalars.data_ptr(), _spec_array(components), scalars.shape[0],
-        part.data_ptr(), m, n, d, t, nsplit, per,
+        _ptr(part), out.data_ptr(), m, n, d, t, nsplit, per,
         torch.cuda.current_stream(Xi.device).cuda_stream)
     _raise_on(code, "kmvm")
     launch_counts["kmvm"] += 1
-    out = part[0]
-    for s in range(1, nsplit):  # in split order, the same for every m
-        out += part[s]
     return out
 
 
 def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars):
     """The fused-CG step: (out (m, t) fp32, dots (4, t) fp32), dots rows
     [<Kv, v>, <r, v>, <r, r>, <v, v>] per column from the unscaled fp32 row
-    views Vrow, R (m, t). No noise term: the caller adds sigma^2."""
+    views Vrow, R (m, t). No noise term: the caller adds sigma^2. out is
+    `kmvm_fused`'s bit for bit (the same column split, summed in split
+    order); each 64-row tile's dots are summed in tile order."""
     if Xi.device.type == "cpu":
         return kmvm_dots_plain(components, Xi, Xj, V, Vrow, R, scalars)
     dtype_code = _check_launch(components, scalars, (Xi, Xj, V),
@@ -253,15 +272,17 @@ def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars):
     n, t = V.shape
     if m == 0 or n == 0:
         raise ValueError(f"kmvm_fused_dots needs m, n >= 1, got {m}, {n}")
+    nsplit, per = _column_split(m, n, t)
     out = torch.empty((m, t), dtype=torch.float32, device=Xi.device)
+    part = _split_buffer(nsplit, m, t, Xi.device)
     partials = torch.empty((-(-m // ROW_TILE), 4, t), dtype=torch.float32,
                            device=Xi.device)
     lib = build.library()
     code = lib.kmvm_dots_fwd(
         dtype_code, Xi.data_ptr(), Xj.data_ptr(), V.data_ptr(),
         Vrow.data_ptr(), R.data_ptr(), scalars.data_ptr(),
-        _spec_array(components), scalars.shape[0], out.data_ptr(),
-        partials.data_ptr(), m, n, d, t,
+        _spec_array(components), scalars.shape[0], _ptr(part), out.data_ptr(),
+        partials.data_ptr(), m, n, d, t, nsplit, per,
         torch.cuda.current_stream(Xi.device).cuda_stream)
     _raise_on(code, "kmvm_dots")
     launch_counts["kmvm_dots"] += 1
@@ -273,9 +294,11 @@ def kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc) -> torch.Tensor:
 
     Xi (m, d) rows, Xj (nc, d) and V (nc, t) one chunk of columns, in one
     operand dtype (fp32 or bf16); scalars (L,) and acc (m, t) fp32. One
-    launch, no column split: chunks of whole 64-column tiles walked in order
-    give the bits of one `kmvm_fused` launch over their columns wherever
-    that launch runs one split (n <= 4096) and t > 1.
+    launch, no column split: each chunk's product is added to acc in fp32
+    in column order, so at t > 1 chunks of whole 64-column tiles walked in
+    order give the bits of one `kmvm_fused` launch over their columns
+    wherever that launch runs one split (n <= 4096); at t = 1 a single
+    chunk does (the final four-lane tree of a row regroups a walk).
     """
     if Xi.device.type == "cpu":
         return kmvm_chunk_plain(components, Xi, Xj, V, scalars, acc)
