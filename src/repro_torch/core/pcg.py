@@ -41,6 +41,25 @@ class SolveState(NamedTuple):
     solutions: torch.Tensor                 # (n, t)
     probes: torch.Tensor | None = None      # (n, t - 1) reused SLQ probes
 
+    def pad_rows(self, m: int) -> "SolveState":
+        """The state zero-padded to m appended rows (streaming observations).
+
+        The padded solutions stay valid x0 guesses for the grown system (CG
+        is exact from any start; zero is the cold start of the new rows).
+        The probes are dropped: a zero-padded draw is not a sample of the
+        extended P, so the caller's next step must be a refresh
+        (`repro_torch.train.solver_state._WarmEngineBase.extend_rows`).
+        """
+        if m < 0:
+            raise ValueError(f"cannot pad SolveState by {m} rows")
+        if m == 0:
+            return self
+        pad = torch.zeros((m, self.solutions.shape[1]),
+                          dtype=self.solutions.dtype,
+                          device=self.solutions.device)
+        return SolveState(solutions=torch.cat([self.solutions, pad], dim=0),
+                          probes=None)
+
 
 class PCGResult(NamedTuple):
     solution: torch.Tensor     # (n, t)

@@ -109,3 +109,22 @@ def make_preconditioner(
     eye = torch.eye(rank, dtype=L.dtype, device=L.device)
     inner = s2 * eye + L.T @ L + jitter * eye
     return Preconditioner(L=L, sigma2=s2, chol_inner=torch.linalg.cholesky(inner))
+
+
+def extend_preconditioner(precond: Preconditioner, m: int) -> Preconditioner:
+    """P extended to m appended rows by zero-padding the factor:
+    P_ext = [[P, 0], [0, sigma^2 I_m]].
+
+    Zero rows leave L^T L, and so `chol_inner`, exactly unchanged: the
+    Woodbury solve, the logdet (which reads n from L) and sampling stay
+    consistent without refactorizing. P_ext is SPD, so CG under it stays
+    exact; the new rows see plain sigma^2 until the next full rebuild. The
+    streaming update's analogue of `reuse=` (O(m k) per batch).
+    """
+    if m < 0:
+        raise ValueError(f"cannot extend a preconditioner by {m} rows")
+    if m == 0:
+        return precond
+    pad = torch.zeros((m, precond.L.shape[1]), dtype=precond.L.dtype,
+                      device=precond.L.device)
+    return precond._replace(L=torch.cat([precond.L, pad], dim=0))

@@ -9,6 +9,11 @@ After training, two caches make test-time O(n):
     O(n r) product per test point, upper-bounding the exact variance;
     `predict_var_exact` is its oracle.
 
+When observations stream in after the precomputation,
+`update_prediction_cache` extends both caches to the grown system at
+O(n m)-class cost per m-row batch instead of a cold precompute (the serving
+fleet's `observe()`, `repro_torch.serve.fleet`).
+
 Every function takes a `repro_torch.core.operators.KernelOperator`: the
 solves use `op.matvec` (or its fused CG step), the test-time products
 `op.cross_matvec`, the preconditioner `op.preconditioner`. Where the
@@ -25,6 +30,7 @@ import torch
 from .kernels_math import constant_mean
 from .partitioned import map_row_chunks
 from .pcg import pcg
+from .pivchol import Preconditioner, extend_preconditioner
 
 
 def solver_dtype(op, *operands) -> torch.dtype:
@@ -151,3 +157,149 @@ def predict_var_exact(op, Xstar: torch.Tensor, *, precond_rank: int = 100,
     if include_noise:
         var = var + op.noise()
     return var
+
+
+# ---------------------------------------------------------------------------
+# incremental updates (streaming observations)
+# ---------------------------------------------------------------------------
+
+
+class CacheUpdateResult(NamedTuple):
+    """`update_prediction_cache` output: the grown cache, the state a caller
+    threads into the next batch (`precond`) and the cost diagnostics."""
+
+    cache: PredictionCache
+    precond: Preconditioner      # extended (or freshly built) preconditioner
+    mean_iters: torch.Tensor     # (1,) CG iterations of the warm mean solve
+    variance_refreshed: bool     # True when compaction re-ran full Lanczos
+    num_new: int                 # m, appended rows this batch
+
+
+def update_prediction_cache(
+    op,
+    y: torch.Tensor,
+    cache: PredictionCache,
+    *,
+    v0: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    precond: Preconditioner | None = None,
+    precond_rank: int = 100,
+    lanczos_rank: int = 128,
+    max_rank: int | None = None,
+    pred_tol: float = 0.01,
+    max_cg_iters: int = 400,
+    min_cg_iters: int = 1,
+    iter_block: int = 16,
+    jitter: float = 1e-6,
+) -> CacheUpdateResult:
+    """Absorb m new observations into an existing prediction cache.
+
+    `op` covers the extended inputs X_ext = [X_old; X_new] (n + m rows) at
+    the hyperparameters the cache was built under, `y` is the full (n + m,)
+    target vector, and `cache` covers the first n rows.
+
+    * Mean: one PCG solve of K_hat_ext a = y_c, warm-started from the
+      zero-padded previous solution, in `iter_block`-iteration blocks with a
+      convergence check between them (`_pcg_blocked`), under the previous
+      batch's preconditioner zero-row-extended (`extend_preconditioner`;
+      pass `precond` back in) or, on the first batch, a new one.
+    * Variance: with K_hat_ext = [[A, B^T], [B, C]], the Lanczos cache's
+      A^{-1} ~= Q T^{-1} Q^T gives F = Q T^{-1} Q^T B^T and the Schur
+      complement S = C - B F; then Q_ext = [[Q, F], [0, -I_m]] and
+      T_ext = blockdiag(T, S) (`_extend_variance_cache`), one (m, n + m)
+      kernel block and no solves. Once the rank would exceed `max_rank`
+      (default 2 * lanczos_rank) the update compacts: a full rank-
+      `lanczos_rank` Lanczos pass on the extended operator from `v0` or
+      `generator` (`variance_refreshed=True`).
+    """
+    n_ext = int(op.shape[0])
+    n_prev = int(cache.mean_cache.shape[0])
+    m = n_ext - n_prev
+    if m <= 0:
+        raise ValueError(
+            f"operator covers {n_ext} rows but the cache already covers "
+            f"{n_prev} — update_prediction_cache needs at least one new row")
+    sdt = solver_dtype(op, y)
+    yc = (y - constant_mean(op.params)).to(sdt)
+
+    if precond is not None:
+        precond = extend_preconditioner(precond, n_ext - precond.L.shape[0])
+    else:
+        precond = op.preconditioner(precond_rank)
+
+    x0 = torch.cat([cache.mean_cache.to(sdt),
+                    torch.zeros((m,), dtype=sdt, device=yc.device)])
+    res, mean_iters = _pcg_blocked(
+        op, yc[:, None], precond, x0=x0[:, None], tol=pred_tol,
+        max_iters=max_cg_iters, min_iters=min_cg_iters, block=iter_block)
+
+    r_prev = int(cache.var_Q.shape[1])
+    limit = 2 * lanczos_rank if max_rank is None else int(max_rank)
+    if r_prev + m > limit:
+        Q, T_chol = build_variance_cache(op, v0=v0, generator=generator,
+                                         lanczos_rank=lanczos_rank)
+        refreshed = True
+    else:
+        Q, T_chol = _extend_variance_cache(op, cache, n_prev, sdt, jitter)
+        refreshed = False
+
+    return CacheUpdateResult(
+        cache=PredictionCache(res.solution[:, 0], Q, T_chol, res.rel_residual),
+        precond=precond, mean_iters=mean_iters,
+        variance_refreshed=refreshed, num_new=m)
+
+
+def _pcg_blocked(op, B, precond, *, tol, max_iters, min_iters, block, x0):
+    """PCG in `block`-iteration calls with a convergence check between them.
+
+    Each block restarts CG from the previous block's solution, with
+    `min_iters` 1 after the first block: the reference's schedule, so the
+    iterates and the iteration count are its. (`pcg` itself stops early
+    too, but one long call would run different iterates.)
+
+    Returns (the last block's PCGResult, total iterations per column).
+    """
+    total_iters = None
+    res = None
+    done = 0
+    while done < max_iters:
+        k = min(block, max_iters - done)
+        res = pcg(op, B, precond.solve, x0=x0, max_iters=k,
+                  min_iters=min(min_iters, k) if done == 0 else 1, tol=tol)
+        total_iters = (res.iterations if total_iters is None
+                       else total_iters + res.iterations)
+        done += k
+        if float(torch.max(res.rel_residual)) <= tol:  # host sync per block
+            break
+        x0 = res.solution
+    return res, total_iters
+
+
+def _extend_variance_cache(op, cache: PredictionCache, n_prev: int, sdt,
+                           jitter: float):
+    """The blockwise (Woodbury) rank extension of the LOVE cache (see
+    `update_prediction_cache`): one (m, n_ext) kernel block, no solves."""
+    X_new = op.X[n_prev:]
+    m = X_new.shape[0]
+    dev = op.device
+    eye = torch.eye(m, dtype=sdt, device=dev)
+    R = op.kernel_rows(X_new).to(sdt)            # (m, n_ext), noise-free
+    Bt = R[:, :n_prev].T                         # (n_prev, m) = B^T
+    C = R[:, n_prev:] + (op.noise() + jitter) * eye
+
+    Q = cache.var_Q.to(sdt)                      # (n_prev, r)
+    T_chol = cache.var_T_chol.to(sdt)
+    W = torch.cholesky_solve(Q.T @ Bt, T_chol, upper=False)   # (r, m)
+    F = Q @ W                                    # (n_prev, m) ~= A^{-1} B^T
+    S = C - Bt.T @ F
+    S = 0.5 * (S + S.T) + jitter * eye
+    S_chol = torch.linalg.cholesky(S)
+
+    r = Q.shape[1]
+    Q_ext = torch.cat([
+        torch.cat([Q, F], dim=1),
+        torch.cat([torch.zeros((m, r), dtype=sdt, device=dev), -eye], dim=1)])
+    T_chol_ext = torch.cat([
+        torch.cat([T_chol, torch.zeros((r, m), dtype=sdt, device=dev)], dim=1),
+        torch.cat([torch.zeros((m, r), dtype=sdt, device=dev), S_chol], dim=1)])
+    return Q_ext, T_chol_ext

@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -53,6 +54,7 @@ ENTRY_POINTS = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()  # batcher workers may be the first callers
 
 
 def _nvcc() -> str:
@@ -119,6 +121,13 @@ def library() -> _Kernels:
     global _lib
     if _lib is not None:
         return _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = _load()
+    return _lib
+
+
+def _load() -> _Kernels:
     sources = _sources()
     if any(not _target(src).exists() for src in sources):
         build()
@@ -132,5 +141,4 @@ def library() -> _Kernels:
             fn.argtypes = argtypes
             fn.restype = restype
             fns[name] = fn
-    _lib = _Kernels(fns)
-    return _lib
+    return _Kernels(fns)

@@ -34,6 +34,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -51,12 +52,21 @@ _COL_TILE = 64       # BN of the kernels
 _SPLIT_TILES = 64    # column tiles per split of kmvm_fused (4096 columns)
 _PLAIN_ROWS = 1024   # row block of the plain versions
 
+_count_lock = threading.Lock()
 launch_counts = {"kmvm": 0, "kmvm_dots": 0, "kmvm_chunk": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of `name`; batcher workers launch from several threads,
+    and `+=` on a dict entry is not atomic."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def scalar_layout(components: tuple) -> int:
@@ -254,7 +264,7 @@ def kmvm_fused(components, Xi, Xj, V, scalars) -> torch.Tensor:
         _ptr(part), out.data_ptr(), m, n, d, t, nsplit, per,
         torch.cuda.current_stream(Xi.device).cuda_stream)
     _raise_on(code, "kmvm")
-    launch_counts["kmvm"] += 1
+    _count("kmvm")
     return out
 
 
@@ -285,7 +295,7 @@ def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars):
         partials.data_ptr(), m, n, d, t, nsplit, per,
         torch.cuda.current_stream(Xi.device).cuda_stream)
     _raise_on(code, "kmvm_dots")
-    launch_counts["kmvm_dots"] += 1
+    _count("kmvm_dots")
     return out, torch.sum(partials, dim=0)
 
 
@@ -315,5 +325,5 @@ def kmvm_fused_chunk(components, Xi, Xj, V, scalars, acc) -> torch.Tensor:
         acc.data_ptr(), m, nc, d, t,
         torch.cuda.current_stream(Xi.device).cuda_stream)
     _raise_on(code, "kmvm_chunk")
-    launch_counts["kmvm_chunk"] += 1
+    _count("kmvm_chunk")
     return acc

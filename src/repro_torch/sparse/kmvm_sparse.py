@@ -31,6 +31,8 @@ counts the kernel's launches.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -41,12 +43,21 @@ from repro_torch.kernels.kmvm import (
     kmvm_plain,
 )
 
+_count_lock = threading.Lock()
 launch_counts = {"kmvm_blocksparse": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of `name`; batcher workers launch from several threads,
+    and `+=` on a dict entry is not atomic."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def longest_row_first(row_ptr) -> np.ndarray:
@@ -132,5 +143,5 @@ def kmvm_blocksparse(components, Xi, Xj, V, scalars, row_ptr, cols, *,
         msg = lib.kmvm_bs_error_string(code).decode()
         raise RuntimeError(f"kmvm_blocksparse launch failed: CUDA error "
                            f"{code} ({msg})")
-    launch_counts["kmvm_blocksparse"] += 1
+    _count("kmvm_blocksparse")
     return out

@@ -37,6 +37,7 @@ from repro_torch.core.mll import (
 )
 from repro_torch.core.operators import make_operator
 from repro_torch.core.pcg import SolveState
+from repro_torch.core.pivchol import extend_preconditioner
 
 
 class WarmStartConfig(NamedTuple):
@@ -154,6 +155,27 @@ class _WarmEngineBase:
             "cg_iters": int(iters.sum()), "iters_per_rhs": iters.tolist(),
             "drift": float(drift), "seconds": time.perf_counter() - t0})
         return loss, aux, g_params
+
+    def extend_rows(self, m: int) -> None:
+        """Absorb m appended training rows into the carried state (streaming
+        observations between optimizer steps; the training-side twin of
+        `predcache.update_prediction_cache`).
+
+        The solutions are zero-padded (`SolveState.pad_rows`) so the y
+        column still warm-starts the (n + m)-row system, and the
+        preconditioner factor is zero-row-extended
+        (`pivchol.extend_preconditioner`). The probes are not carried, so
+        the next step runs as a refresh: fresh probes, and a preconditioner
+        whose pivots can land on the new rows.
+        """
+        if m < 0:
+            raise ValueError(f"cannot extend solver state by {m} rows")
+        if self.state is None or m == 0:
+            return
+        self.state = self.state._replace(
+            solve=self.state.solve.pad_rows(m),
+            precond=extend_preconditioner(self.state.precond, m))
+        self._steps_since_refresh = self.warm.refresh_every
 
     def reset(self):
         self.state = None

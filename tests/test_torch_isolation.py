@@ -5,9 +5,9 @@
 * With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
 * Entry points with no `device` raise when there is no card, rather than
   running on the CPU (the operators, the posterior fit and engine, the
-  launchers, training: `fit_exact_gp`, `exact_mll`, the blocksparse
-  backend, and the distributed engine: `init_distributed`, `make_mesh`,
-  `make_host_mesh`, the sharded operator).
+  launchers, the serving fleet, training: `fit_exact_gp`, `exact_mll`, the
+  blocksparse backend, and the distributed engine: `init_distributed`,
+  `make_mesh`, `make_host_mesh`, the sharded operator).
 * A non-CPU tensor handed to a kernel wrapper never reaches the plain
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
 """
@@ -57,7 +57,8 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch.launch.serve_gp, repro_torch.interop\n"
         "import repro_torch.train.gp_trainer, repro_torch.sparse\n"
         "import repro_torch.core.distributed, repro_torch.launch.train\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.obs\n"
+        "from repro_torch.serve import ServeFleet, ContinuousBatcher\n"
         "X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)\n"
         "op = make_operator(OperatorConfig(backend='pallas'), X, init_params(),"
         " device='cpu')\n"
@@ -89,6 +90,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     art = fit_posterior(op, np.ones(8, np.float32), precond_rank=2, lanczos_rank=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PredictionEngine(art)
+    from repro_torch.serve import ServeFleet
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeFleet()
     from repro_torch.launch import serve_gp
 
     with pytest.raises(RuntimeError, match="device='cpu'"):

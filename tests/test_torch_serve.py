@@ -1,10 +1,11 @@
 """The serving slice against the reference: artifacts written by one
 package load in the other and serve the same predictions with the same
 content digest, and the port's `serve_gp` flow matches the reference's on
-the same data, hyperparameters and Lanczos start vector.
+the same data, the port's trained hyperparameters and Lanczos start vector;
+the launcher's continuous fleet path runs to its end and reports both
+models and the update.
 """
 
-import math
 import os
 import pathlib
 import subprocess
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import GPParams as RefGPParams
 from repro.core import OperatorConfig as RefConfig
 from repro.core import dense_khat as ref_dense_khat
 from repro.core import init_params_for as ref_init
@@ -151,11 +153,12 @@ def test_micro_batcher_matches_direct_predict():
 
 
 def test_serve_gp_flow_matches_reference(tmp_path):
-    """The whole slice: the port's launcher fits, saves and serves at n=256;
-    the reference's flow on the same data, fixed hyperparameters and
-    Lanczos start vector (its pcg + lanczos on its pallas backend) predicts
-    the same variance, and a mean within what the 0.01 solve tolerance
-    allows; the reference's engine serves the port's artifact the same."""
+    """The whole slice: the port's launcher trains, fits, saves and serves
+    at n=256; the reference's flow at the port's trained hyperparameters
+    and Lanczos start vector (its pcg + lanczos on its pallas backend)
+    predicts the same variance, and a mean within what the 0.01 solve
+    tolerance allows; the reference's engine serves the port's artifact the
+    same."""
     art_dir = str(tmp_path / "art")
     report = serve_gp.main([
         "--device", "cpu", "--dataset", "houseelectric", "--n", "256",
@@ -167,14 +170,18 @@ def test_serve_gp_flow_matches_reference(tmp_path):
     n, d = art.X.shape
     Z = art.X[:64].numpy() + 0.05
 
-    # the reference's flow at the launcher's fixed hyperparameters
-    p_ref = ref_init("matern32", lengthscale=math.sqrt(d), noise=0.01,
-                     dtype=jnp.float32)._replace(
-        raw_outputscale=jnp.asarray(np.asarray(art.params.raw_outputscale)))
-    for a, b in zip(jax.tree.leaves(p_ref), art.params):
-        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6)
+    # the reference's flow at the launcher's trained hyperparameters
+    p_ref = RefGPParams(*(jnp.asarray(a.numpy()) for a in art.params))
+    sp = lambda a: float(np.log1p(np.exp(np.asarray(a, np.float64))))  # noqa: E731
+    hyper = report["hyperparameters"]
+    assert sp(p_ref.raw_lengthscale) == pytest.approx(hyper["lengthscale"], rel=1e-6)
+    assert sp(p_ref.raw_outputscale) == pytest.approx(hyper["outputscale"], rel=1e-6)
+    assert float(p_ref.raw_mean) == pytest.approx(hyper["mean"], rel=1e-6)
+    # trained: not the initial hyperparameters (noise 0.5)
+    assert abs(hyper["noise"] - 0.5) > 1e-3
     Xj = jnp.asarray(art.X.numpy())
-    op_ref = ref_make(RefConfig(kernel="matern32", backend="pallas"), Xj, p_ref)
+    op_ref = ref_make(RefConfig(kernel="matern32", backend="pallas", row_block=512),
+                      Xj, p_ref)
     yc = jnp.asarray(art.y.numpy()) - p_ref.raw_mean
     res = ref_pcg(op_ref, yc[:, None], op_ref.preconditioner(art.meta["precond_rank"]).solve,
                   max_iters=400, min_iters=10, tol=0.01)
@@ -200,6 +207,32 @@ def test_serve_gp_flow_matches_reference(tmp_path):
     mean_r, var_r = RefEngine(ref_artifact.load_artifact(art_dir), chunk_size=128).predict(Z)
     _close(mean.numpy(), mean_r)
     _close(var.numpy(), var_r)
+
+
+def test_serve_gp_continuous_fleet_observes():
+    """The launcher's fleet path at n = 256: two models served, an SLO
+    target tracked, 8 rows observed into m0 and priced against a cold
+    refit; the fleet serves what the launcher's engine does."""
+    report = serve_gp.main([
+        "--device", "cpu", "--dataset", "houseelectric", "--n", "256",
+        "--chunk", "128", "--requests", "16", "--clients", "4",
+        "--scheduler", "continuous", "--models", "2", "--observe", "8",
+        "--slo-target-ms", "1000"])
+    models = report["models"]
+    assert set(models) == {"m0", "m1"}
+    assert all(v["count"] > 0 and v["p50_ms"] > 0 for v in models.values())
+    assert all(v["breaches"] == 0 and "burn_rate" in v for v in models.values())
+    assert report["requests"] == 16 and report["batches"] > 0
+    check = report["fleet_vs_engine"]
+    assert check["mean_bitwise"] and check["var_rel"] <= 1e-5
+    upd = report["observe"]
+    assert upd["m"] == 8 and upd["model"] == "m0" and len(upd["digest"]) == 64
+    assert upd["update_s"] > 0 and upd["refit_s"] > 0
+    assert upd["update_rel_residual"] <= upd["pred_tol"]
+    assert 0 < upd["warm_iters"] < upd["cold_iters"]
+    assert upd["mean_vs_refit"] <= 3e-2 and upd["var_finite_positive"]
+    assert upd["update_rank"] == 128 + 8
+    assert upd["lock_wait_ms"] > 0
 
 
 def test_dataset_draw_is_fixed_across_processes():
