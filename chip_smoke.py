@@ -53,6 +53,37 @@ caught and skipped):
    p50/p99/QPS, batches, requests per launch, padded rows, and how long a
    request to m1 waited behind the update. n stays cut from the
    configuration's 2^20 to 2^16 (PERF.md).
+4a. Autotune (`repro_torch.kernels.autotune`) at the exact GP's shapes,
+   on phase 4's trained artifact: a sweep of the column split
+   (`tiles_per_split` 16, 32, 64, 128, 256 and the whole range) of B1 + B2
+   at (2^16, 2^16, d 9) for t = 1 and t = 9, matern32, fp32, into a fresh
+   cache under build/, each candidate's time printed beside the choice;
+   a second call hits the memo and, after `clear_memo`, a third the disk
+   (counters: 1 sweep, then 2 hits). B1 and B2 at every candidate against
+   their plain versions on the first 2048 rows against all 2^16 (2e-4 of
+   max|out|); at the tuned split a row's B1/B2 result is the same bit for
+   bit in a 64-row, a 2048-row and the full launch, and B2's out equals
+   B1's; B1 and B2 timed at the default and the tuned split in turns. Then
+   `fit_posterior` on an `autotune=True` operator: residual <= 0.01, B1 and
+   B2 launched at the tuned split, the mean on 512 test points within 3e-2
+   of max|mean| of the phase-4 artifact's (the default split; two solves
+   stopped at 0.01).
+4b. Table 1 (the paper's comparison) on phase 4's draw of the
+   houseelectric analogue (n = 2^16 training rows, 49152 test rows), fp32:
+   the exact GP (phase 4's trained artifact through the engine), SGPR
+   (m = 512, 100 steps of Adam(0.1)) and SVGP (m = 1024, batch 1024,
+   Adam(0.01), 100 epochs), the paper's widths; each method's test RMSE
+   and NLL, training seconds, seconds per step or epoch and peak memory;
+   then `examples/quickstart_torch.py`'s `main()` on the card, its rows
+   printed. Gates: every loss, RMSE and NLL finite; SGPR's last loss below
+   its first, SVGP's last epoch's below its first; on four 4096-row
+   subsets `sgpr_loss` and `svgp_loss` on the card equal their CPU values
+   from the same trained params within 1e-4 relative, evaluated in fp64
+   (the fp32 values of both devices are printed beside it with their
+   distance from the fp64 value: the trained SVGP loss is small, about
+   0.06, and in fp32 each device's value lies 1e-4..1e-3 of itself from
+   the fp64 one, with the order of the sums; PERF.md). Whether the exact
+   GP's RMSE beats both baselines is printed, not gated.
 5. Block-sparse kernel B4 (`kmvm_blocksparse`) against its plain version
    (same tolerances): plan tiles 8, 32, 64 and 256 on ragged n, t in
    {1, 9, 128}, fp32 and bf16, specs `matern32 * wendland2`, `wendland4`,
@@ -639,6 +670,7 @@ def phase_serve() -> dict:
             raise SystemExit(f"[serve] kernel {name} was never launched on the "
                              f"main path")
     report["launches_total"] = launches
+    report["artifact"] = art_dir
 
     kmvm.reset_launch_counts()
     t0 = time.perf_counter()
@@ -684,6 +716,296 @@ def phase_serve() -> dict:
         raise SystemExit(f"[serve] fleet gates failed: {failed}")
     report["fleet"] = fleet
     return report
+
+
+AUTOTUNE_T = (1, 9)        # the exact GP's solves (t = 1) and mBCG (y + 8 probes)
+SGPR_M, SGPR_STEPS = 512, 100            # the paper's SGPR settings
+SVGP_M, SVGP_BATCH, SVGP_EPOCHS = 1024, 1024, 100   # and SVGP's
+SUBSET, SUBSETS = 4096, 4  # rows and count of the card-vs-CPU loss checks
+
+
+def _turns(fns: dict, reps: int) -> dict:
+    """ms of each no-argument call, timed in turns a, b, b, a (CUDA events)
+    and averaged over the two turns of each."""
+    names = list(fns)
+    order = names + names[::-1]
+    ms = {k: [] for k in names}
+    for k in order:
+        ms[k].append(_time_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def phase_autotune(art, y, X_test) -> dict:
+    """The column-split autotuner at the exact GP's shapes: a sweep per t
+    into a fresh cache under build/, its memo and disk hits; B1 and B2 at
+    every candidate split against their plain versions; the row-count and
+    B2 == B1 pins at the tuned split; tuned against default split times;
+    then `fit_posterior` on an autotune=True operator against the phase-4
+    artifact (the default split)."""
+    from repro_torch import obs
+    from repro_torch.core.operators import make_operator
+    from repro_torch.core.predcache import predict_mean
+    from repro_torch.kernels import autotune, kmvm
+    from repro_torch.serve import fit_posterior
+
+    cdir = os.path.join(HERE, "build", "autotune_cache")
+    shutil.rmtree(cdir, ignore_errors=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cdir   # the operator's sweeps too
+    autotune.clear_memo()
+    components = (("matern32",),)
+    n, d = art.X.shape
+    fp32 = dict(compute_dtype="float32")
+    out = {"splits": {}, "timings": {}, "sweep_ms": {}, "sweep_launches": {}}
+    for t in AUTOTUNE_T:
+        obs.registry().reset("autotune.")
+        kmvm.reset_launch_counts()
+        split = autotune.autotune_tiles(components, n, d, t, **fp32)
+        torch.cuda.synchronize()
+        out["sweep_launches"][t] = dict(kmvm.launch_counts)
+        first = obs.registry().snapshot()
+        again = autotune.autotune_tiles(components, n, d, t, **fp32)
+        memo = obs.registry().snapshot()
+        autotune.clear_memo()
+        disk = autotune.autotune_tiles(components, n, d, t, **fp32)
+        snap = obs.registry().snapshot()
+        key = autotune.cache_key(components, n, d, t, **fp32)
+        with open(os.path.join(cdir, autotune.key_hash(key) + ".json")) as f:
+            entry = json.load(f)
+        out["splits"][t] = split
+        out["timings"][t] = entry["timings"]
+        out["sweep_ms"][t] = first["autotune.sweep_ms"]["sum"]
+        log(f"[autotune] ({n}, {n}, d {d}, t {t}) -> key buckets n {key['n']} "
+            f"d {key['d']} t {key['t']}: tiles per split "
+            + ", ".join(f"{c}: {1e3 * s:.3f} ms" for c, s in
+                        entry["timings"].items())
+            + f" (B1 + B2 at the key's shape; 0 = one split) -> chosen {split}; "
+            f"sweep {out['sweep_ms'][t]:.0f} ms, launches "
+            f"{out['sweep_launches'][t]}")
+        gates = {
+            "one sweep, one miss": first["autotune.sweeps"] == 1
+            and first["autotune.misses"] == 1,
+            "second call hits the memo": again == split
+            and memo["autotune.hits"] == 1 and memo["autotune.sweeps"] == 1,
+            "third call hits the disk": disk == split
+            and snap["autotune.hits"] == 2 and snap["autotune.sweeps"] == 1,
+        }
+        failed = [k for k, ok in gates.items() if not ok]
+        if failed:
+            raise SystemExit(f"[autotune] cache gates failed at t {t}: {failed}")
+
+    # every candidate against the plain version; the pins at the tuned split
+    scalars = torch.tensor([1.0, 1.0], dtype=torch.float32, device=DEV)
+    Xs = (art.X / math.sqrt(d)).contiguous()
+    g = torch.Generator(device=DEV).manual_seed(11)
+    worst, abs_err = 0.0, {}
+    rows = min(2048, n)
+    for t in AUTOTUNE_T:
+        V = torch.randn((n, t), generator=g, device=DEV)
+        R = torch.randn((rows, t), generator=g, device=DEV)
+        Xi, Vi = Xs[:rows].contiguous(), V[:rows].contiguous()
+        ref = kmvm.kmvm_plain(components, Xi, Xs, V, scalars)
+        for c in autotune.DEFAULT_CANDIDATES:
+            o1 = kmvm.kmvm_fused(components, Xi, Xs, V, scalars, c)
+            o2, _ = kmvm.kmvm_fused_dots(components, Xi, Xs, V, Vi, R, scalars, c)
+            e = max(_rel(o1, ref), _rel(o2, ref))
+            worst = max(worst, e)
+            if not e <= TOL[torch.float32]:
+                raise SystemExit(f"[autotune] MISMATCH split {c} t {t}: {e:.2e}")
+        c = out["splits"][t]
+        o1 = kmvm.kmvm_fused(components, Xi, Xs, V, scalars, c)
+        o2, _ = kmvm.kmvm_fused_dots(components, Xi, Xs, V, Vi, R, scalars, c)
+        s1 = kmvm.kmvm_fused(components, Xi[:64].contiguous(), Xs, V, scalars, c)
+        s2, _ = kmvm.kmvm_fused_dots(components, Xi[:64].contiguous(), Xs, V,
+                                     Vi[:64].contiguous(), R[:64].contiguous(),
+                                     scalars, c)
+        full1 = kmvm.kmvm_fused(components, Xs, Xs, V, scalars, c)
+        full2, _ = kmvm.kmvm_fused_dots(components, Xs, Xs, V, V, V, scalars, c)
+        pins = {"64-row B1 rows == 2048-row B1 rows": torch.equal(s1, o1[:64]),
+                "64-row B2 rows == 2048-row B2 rows": torch.equal(s2, o2[:64]),
+                "B2 == B1 (2048 rows)": torch.equal(o1, o2),
+                "B2 == B1 (all rows)": torch.equal(full1, full2),
+                "2048 of all rows == 2048-row launch": torch.equal(full1[:rows], o1)}
+        failed = [k for k, ok in pins.items() if not ok]
+        if failed:
+            raise SystemExit(f"[autotune] pins failed at split {c}, t {t}: {failed}")
+        abs_err[t] = float(torch.max(torch.abs(o1 - ref)))
+        # tuned against default, in turns, at the real shape (n, n, d, t)
+        default = kmvm._SPLIT_TILES
+        fns = {f"B1 split {default}":
+               lambda: kmvm.kmvm_fused(components, Xs, Xs, V, scalars, default),
+               f"B1 split {c} (tuned)":
+               lambda: kmvm.kmvm_fused(components, Xs, Xs, V, scalars, c),
+               f"B2 split {default}":
+               lambda: kmvm.kmvm_fused_dots(components, Xs, Xs, V, V, V, scalars,
+                                            default),
+               f"B2 split {c} (tuned)":
+               lambda: kmvm.kmvm_fused_dots(components, Xs, Xs, V, V, V, scalars, c)}
+        ms = _turns(fns, 5)
+        out["timings"][f"real_t{t}"] = ms
+        b = _bounds(components, n, n, d, t, 4, True)
+        log(f"[autotune] ({n}, {n}, {d}, {t}) default vs tuned, in turns: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f"; B2 bound {b['bound_ms']:.3f} ms; pins hold at split {c}")
+    log(f"[autotune] {len(autotune.DEFAULT_CANDIDATES)} candidates x t "
+        f"{AUTOTUNE_T} on 2048 rows match the plain version (worst rel "
+        f"{worst:.2e}, tolerance {TOL[torch.float32]})")
+    out["worst_rel_err"], out["abs_err"] = worst, abs_err
+
+    # the exact GP's precompute on an autotuned operator
+    op_tuned = make_operator(art.config._replace(autotune=True), art.X,
+                             art.params, device=DEV)
+    op_default = make_operator(art.config, art.X, art.params, device=DEV)
+    kmvm.reset_launch_counts()
+    obs.registry().reset("autotune.")
+    t0 = time.perf_counter()
+    fit = fit_posterior(op_tuned, y,
+                        generator=torch.Generator(device=DEV).manual_seed(0),
+                        precond_rank=art.meta["precond_rank"],
+                        lanczos_rank=art.meta["lanczos_rank"],
+                        pred_tol=art.meta["pred_tol"],
+                        max_cg_iters=art.meta["max_cg_iters"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kmvm.launch_counts)
+    hits = obs.registry().snapshot().get("autotune.hits", 0)
+    Xq = torch.as_tensor(X_test[:512], dtype=torch.float32, device=DEV)
+    m_tuned = predict_mean(op_tuned, Xq, fit.cache())
+    m_default = predict_mean(op_default, Xq, art.cache())
+    diff = _rel(m_tuned, m_default)
+    res = fit.meta["solve_rel_residual"]
+    log(f"[autotune] fit_posterior on the autotuned operator: {fit_s:.2f} s, "
+        f"residual {res:.3e}, launches {launches}, autotune hits {hits}; "
+        f"mean vs the default split's artifact {diff:.3e} of max|mean|")
+    gates = {"residual <= 0.01": res <= 0.01,
+             "B1 and B2 launched": min(launches["kmvm"], launches["kmvm_dots"]) > 0,
+             "the operator read the tuned split": hits > 0,
+             "mean within 3e-2 of the default split's": diff <= 3e-2}
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"[autotune] fit gates failed: {failed}")
+    out.update(fit_s=fit_s, fit_residual=res, fit_launches=launches,
+               mean_vs_default=diff)
+    return out
+
+
+def _params_to(params, device, dtype):
+    from repro_torch.core.kernels_math import params_map
+
+    return params_map(lambda a: a.detach().to(device, dtype), params)
+
+
+def phase_table1(serve: dict, art, s) -> dict:
+    """The paper's Table 1 on the houseelectric analogue (phase 4's draw):
+    the exact GP (phase 4's trained artifact through the engine), SGPR and
+    SVGP at the paper's widths, fp32; then examples/quickstart_torch.py."""
+    import importlib.util
+
+    from repro_torch.core.gp import gaussian_nll, rmse
+    from repro_torch.core.sgpr import sgpr_loss, sgpr_precompute, sgpr_predict
+    from repro_torch.core.svgp import svgp_loss, svgp_predict
+    from repro_torch.serve import PredictionEngine
+    from repro_torch.train.gp_trainer import fit_sgpr, fit_svgp
+
+    X = torch.as_tensor(s.X_train[:N_TRAIN], dtype=torch.float32, device=DEV)
+    y = torch.as_tensor(s.y_train[:N_TRAIN], dtype=torch.float32, device=DEV)
+    Xt = torch.as_tensor(s.X_test, dtype=torch.float32, device=DEV)
+    yt = torch.as_tensor(s.y_test, dtype=torch.float32, device=DEV)
+    rows = {}
+
+    def row(name, mean, var, train_s, per: str, peak):
+        rows[name] = {"rmse": float(rmse(mean, yt)),
+                      "nll": float(gaussian_nll(mean, var, yt)),
+                      "train_s": train_s, "per": per, "peak_gib": peak / 2**30}
+        r = rows[name]
+        log(f"[table1] {name}: test rmse {r['rmse']:.5f}, nll {r['nll']:.5f}, "
+            f"train {train_s:.2f} s ({per}), peak {r['peak_gib']:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = PredictionEngine(art, chunk_size=1024, device=DEV)
+    mean, var = engine.predict(Xt)
+    torch.cuda.synchronize()
+    row("exact", mean, var, serve["train_s"],
+        "phase 4: subset pretraining and 2 full-data steps; precompute "
+        f"{serve['precompute_s']:.2f} s",
+        max(serve["max_memory_allocated"], torch.cuda.max_memory_allocated()))
+
+    torch.cuda.reset_peak_memory_stats()
+    sp, sgpr_trace, secs = fit_sgpr("matern32", X, y, SGPR_M, steps=SGPR_STEPS,
+                                    device=DEV)
+    cache = sgpr_precompute("matern32", X, y, sp)
+    ms, vs = sgpr_predict("matern32", Xt, sp, cache)
+    torch.cuda.synchronize()
+    row("sgpr", ms, vs, secs, f"{secs / SGPR_STEPS:.4f} s per step",
+        torch.cuda.max_memory_allocated())
+
+    torch.cuda.reset_peak_memory_stats()
+    vp, svgp_trace, secs = fit_svgp("matern32", X, y, SVGP_M, epochs=SVGP_EPOCHS,
+                                    batch=SVGP_BATCH, lr=0.01, device=DEV)
+    mv, vv = svgp_predict("matern32", Xt, vp)
+    torch.cuda.synchronize()
+    row("svgp", mv, vv, secs, f"{secs / SVGP_EPOCHS:.4f} s per epoch of "
+        f"{N_TRAIN // SVGP_BATCH} steps", torch.cuda.max_memory_allocated())
+
+    # the losses on 4096-row subsets, the card against the CPU from the same
+    # (trained, fp32) params, in fp64, where rounding cannot hide a
+    # difference in the function. The fp32 values are printed beside it with
+    # their distance from the fp64 one on each device: the trained SVGP loss
+    # is small (about 0.06), and its fp32 value lies 1e-4..1e-3 of itself
+    # from the fp64 one on either device, with the order of the sums
+    # (PERF.md)
+    fns = {"sgpr": lambda X_, y_, p: sgpr_loss("matern32", X_, y_, p),
+           "svgp": lambda X_, y_, p: svgp_loss("matern32", X_, y_, p, N_TRAIN)}
+    losses = {}
+    for k, p in (("sgpr", sp), ("svgp", vp)):
+        for i in range(SUBSETS):
+            rows_ = slice(i * SUBSET, (i + 1) * SUBSET)
+            vals = {}
+            for where, dev in (("card", DEV), ("cpu", "cpu")):
+                for dt in (torch.float32, torch.float64):
+                    vals[f"{where}{str(dt)[-2:]}"] = float(
+                        fns[k](X[rows_].to(dev, dt), y[rows_].to(dev, dt),
+                               _params_to(p, dev, dt)))
+            ref = vals["cpu64"]
+            vals.update({f"rel_{a}": abs(vals[a] - ref) / abs(ref)
+                         for a in ("card32", "cpu32", "card64")})
+            vals["rel_card32_cpu32"] = abs(
+                vals["card32"] - vals["cpu32"]) / abs(vals["cpu32"])
+            losses[f"{k}{i}"] = vals
+            log(f"[table1] {k}_loss on rows {rows_.start}:{rows_.stop} from the "
+                f"trained params: fp64 card {vals['card64']:.9f} CPU {ref:.9f} "
+                f"(rel {vals['rel_card64']:.2e}); fp32 card {vals['card32']:.7f}"
+                f" CPU {vals['cpu32']:.7f} (rel {vals['rel_card32_cpu32']:.2e}),"
+                f" from fp64: card {vals['rel_card32']:.2e}, CPU "
+                f"{vals['rel_cpu32']:.2e}")
+    log(f"[table1] SGPR loss {sgpr_trace[0]:.5f} -> {sgpr_trace[-1]:.5f}, "
+        f"SVGP epoch loss {svgp_trace[0]:.5f} -> {svgp_trace[-1]:.5f}")
+    beats = rows["exact"]["rmse"] < min(rows["sgpr"]["rmse"], rows["svgp"]["rmse"])
+    log(f"[table1] exact GP rmse below both baselines: {beats}")
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(HERE, "examples", "quickstart_torch.py"))
+    quick = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quick)
+    qrows = quick.main(["--device", DEV, "--artifact",
+                        os.path.join(HERE, "build", "quickstart_artifact")])
+    for name in ("exact", "sgpr", "svgp"):
+        r = qrows[name]
+        log(f"[table1] quickstart {name}: rmse {r['rmse']:.4f} nll "
+            f"{r['nll']:.4f} ({r['seconds']:.2f} s train)")
+    values = ([v for r in rows.values() for v in (r["rmse"], r["nll"])]
+              + sgpr_trace + svgp_trace
+              + [v for d in losses.values() for v in d.values()]
+              + [v for r in qrows.values() for v in (r["rmse"], r["nll"])])
+    gates = {"every loss, rmse and nll finite": all(map(math.isfinite, values)),
+             "SGPR's last loss below its first": sgpr_trace[-1] < sgpr_trace[0],
+             "SVGP's last epoch below its first": svgp_trace[-1] < svgp_trace[0],
+             "subset losses card == CPU within 1e-4 (fp64, same params)":
+                 max(d["rel_card64"] for d in losses.values()) <= 1e-4}
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"[table1] gates failed: {failed}")
+    return {"rows": rows, "quickstart": qrows, "subset_losses": losses,
+            "exact_beats_both": beats}
 
 
 def phase_spatial_observe(art, X_new, y_new, Xq) -> dict:
@@ -1398,12 +1720,19 @@ def main() -> None:
                                 max_points=N_TRAIN * 9 // 4)
     X_train = torch.as_tensor(np.asarray(s.X_train[:N_TRAIN], np.float32),
                               device=DEV)
-    del s
     kern = phase_kernels(X_train)
     del X_train
     Xf, yf, lf = make_spatial_field(SPATIAL_N + SPATIAL_TEST, seed=DATA_SEED)
     b4 = phase_blocksparse(Xf[:SPATIAL_N])
     serve = phase_serve()
+    from repro_torch.serve import load_artifact
+
+    art = load_artifact(serve["artifact"], device=DEV)
+    tuned = phase_autotune(
+        art, torch.as_tensor(s.y_train[:N_TRAIN], dtype=torch.float32,
+                             device=DEV), s.X_test)
+    table1 = phase_table1(serve, art, s)
+    del art, s
     spatial = phase_spatial(Xf[:SPATIAL_N], yf[:SPATIAL_N],
                             Xf[SPATIAL_N:], lf[SPATIAL_N:])
     Xc, yc, _ = make_spatial_field(CROSSCHECK_N, seed=DATA_SEED)
@@ -1438,7 +1767,18 @@ def main() -> None:
             "bound_by": main_row["bound_by"],
             "tc_bound_ms": main_row["tc_bound_ms"],
             "library_ms": None, "shape": main_row["shape"],
-            "timings": kern["rows"][kname]})
+            "timings": kern["rows"][kname],
+            "autotune": {
+                "tuned_split": tuned["splits"],
+                "sweep_launches": {t: c[kname] for t, c in
+                                   tuned["sweep_launches"].items()},
+                "sweep_ms": tuned["sweep_ms"],
+                "default_vs_tuned_ms": {
+                    t: {k: v for k, v in tuned["timings"][f"real_t{t}"].items()
+                        if k.startswith(KERNEL_LABEL[kname])}
+                    for t in AUTOTUNE_T},
+                "fit_launches": tuned["fit_launches"][kname],
+                "max_abs_err": tuned["abs_err"]}})
     row = b4["rows"][0]
     kernels.append({
         "name": "kmvm_blocksparse", "route": "cuda",
@@ -1470,6 +1810,7 @@ def main() -> None:
         "bound_by": row["bound_by"], "tc_bound_ms": row["tc_bound_ms"],
         "library_ms": None,
         "shape": row["shape"], "timings": b3["rows"]})
+    log(f"[table1] {json.dumps(table1['rows'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -14,6 +14,8 @@ public names. It imports `torch` only: nothing of JAX and nothing of
                        same plus the CG dot block, and its chunk-accumulate
                        step) with their plain versions
     kernels.ops        spec -> fused-pass plan, dtype policy, block_fn
+    kernels.autotune   the column split of the fused kernels, swept once per
+                       card, dtype, spec and shape bucket, cached on disk
     core.partitioned   row-blocked K @ V and its autograd backward
     core.operators     KernelOperator registry: dense / partitioned / pallas
                        (+ blocksparse and sharded, registered lazily)
@@ -30,9 +32,11 @@ public names. It imports `torch` only: nothing of JAX and nothing of
                        contraction on the chunk-accumulate CUDA kernel, the
                        distributed MLL, warm steps and mean-cache solve)
     core.predcache     mean cache + Lanczos variance cache, predictions
+    core.sgpr, svgp    the paper's approximate-GP baselines (Table 1)
     optim              Adam, L-BFGS, LR schedules
     train              warm-started solve engines (one device, sharded),
-                       `fit_exact_gp`
+                       `fit_exact_gp`, `fit_sgpr` / `fit_svgp`, checkpoints
+                       and `CheckpointManager`
     serve              PosteriorArtifact, PredictionEngine, MicroBatcher
     launch.mesh        process-group meshes, `init_distributed`
     launch.serve_gp    fit-or-load a posterior and serve requests

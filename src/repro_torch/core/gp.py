@@ -47,7 +47,7 @@ class ExactGPConfig(NamedTuple):
     backend: str = "partitioned"      # KernelOperator registry key
     compute_dtype: str | None = None  # "bfloat16" = bf16 operands
     plan: object | None = None        # SparsePlan (backend="blocksparse")
-    autotune: bool = False            # accepted; no effect on this card
+    autotune: bool = False            # autotune the pallas column split
     fused_cg: bool | None = None      # fused-CG step (None = auto)
 
     def mll_config(self) -> MLLConfig:

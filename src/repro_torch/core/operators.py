@@ -84,8 +84,12 @@ class OperatorConfig(NamedTuple):
     geom:          the `DistGeometry` of the sharded backend (None elsewhere).
     inner_backend: the sharded backend's per-tile backend ("partitioned",
                    "pallas" or "blocksparse").
-    interpret, autotune: the reference's TPU and tile-autotuner settings.
-                   Accepted so that its configs load; no effect on this card.
+    autotune:      pick the fused kernels' column split (`tiles_per_split`)
+                   for the pallas backend's (n, n) launches with
+                   `repro_torch.kernels.autotune` instead of the static
+                   default (the reference tunes its Pallas tiles there).
+    interpret:     the reference's TPU interpret flag; accepted so that its
+                   configs load, no effect on this card.
     """
 
     kernel: str = "matern32"
@@ -410,8 +414,10 @@ class PallasFusedOperator(PartitionedOperator):
     bounds the fallback's transient memory. With a single-fused-pass plan,
     `fused_matvec_dots` returns the MVM and the CG dot block from ONE launch
     (`kmvm_fused_matmat`), so a CG iteration is one kernel launch plus the
-    O(nk) preconditioner apply. On a CPU tensor the kernels run their plain
-    PyTorch versions.
+    O(nk) preconditioner apply. With `config.autotune` both take the column
+    split `repro_torch.kernels.autotune` picked for (n, d, t); cross launches
+    (serving) keep the static split. On a CPU tensor the kernels run their
+    plain PyTorch versions.
     """
 
     @classmethod
@@ -434,6 +440,19 @@ class PallasFusedOperator(PartitionedOperator):
 
         return fn
 
+    def _tiles(self, t: int) -> int | None:
+        """`tiles_per_split` of an (n, n) x (n, t) launch: autotuned when
+        asked (B1 and B2 get the same split for the same t, which keeps
+        B2's out equal to B1's), else None, the kernels' default."""
+        if not self.config.autotune:
+            return None
+        from repro_torch.kernels.autotune import tiles_for_spec
+
+        n, d = self.X.shape
+        return tiles_for_spec(self.config.kernel, self.params, n, d, t,
+                              device=self.X.device,
+                              compute_dtype=self.config.compute_dtype)
+
     def matvec(self, V):
         from repro_torch.kernels.ops import kmvm_block, mvm_plan
 
@@ -443,7 +462,8 @@ class PallasFusedOperator(PartitionedOperator):
         if squeeze:
             V = V[:, None]
         out = kmvm_block(self.config.kernel, self.X, self.X, V, self.params,
-                         compute_dtype=self.config.compute_dtype)
+                         compute_dtype=self.config.compute_dtype,
+                         split_tiles=self._tiles(V.shape[1]))
         out = self._add_noise(out, V)
         return out[:, 0] if squeeze else out
 
@@ -462,7 +482,8 @@ class PallasFusedOperator(PartitionedOperator):
             return super().fused_matvec_dots(V, R)
         out, dots = kmvm_fused_matmat(
             self.config.kernel, self.X, V, R, self.params,
-            compute_dtype=self.config.compute_dtype)
+            compute_dtype=self.config.compute_dtype,
+            split_tiles=self._tiles(V.shape[1]))
         out = out.to(V.dtype)
         if self.config.add_noise:
             sigma2 = noise_variance(self.params, self.config.noise_floor)

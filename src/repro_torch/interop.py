@@ -4,9 +4,10 @@
 NamedTuple tree of the reference whose leaves are numpy arrays (or anything
 `np.asarray` takes) and returns the port's NamedTuples of tensors on
 `device`. The classes are matched by name, so nothing of the reference is
-imported; this covers every params tree the reference's trainer returns
-(`GPParams`, and `KernelParams` with its per-node `StationaryParams` /
-`RQParams` / `LinearParams` / `ScaleParams`). Artifacts cover the rest of
+imported; this covers every params tree the reference's trainers return
+(`GPParams`, `KernelParams` with its per-node `StationaryParams` /
+`RQParams` / `LinearParams` / `ScaleParams`, and the baselines'
+`SGPRParams` / `SVGPParams`). Artifacts cover the rest of
 the serving state (`repro_torch.serve.load_artifact` reads the
 reference's files).
 """
@@ -16,13 +17,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import kernels_math
+from repro_torch.core import kernels_math, sgpr, svgp
+
+_MODULES = (kernels_math, sgpr, svgp)
+
+
+def _counterpart(name: str):
+    for mod in _MODULES:
+        cls = getattr(mod, name, None)
+        if cls is not None:
+            return cls
+    return None
 
 
 def params_from_numpy(tree, device=None):
     """Reference params tree (numpy leaves) -> the port's, on `device`."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        cls = getattr(kernels_math, type(tree).__name__, None)
+        cls = _counterpart(type(tree).__name__)
         if cls is None or getattr(cls, "_fields", None) != tree._fields:
             raise TypeError(f"no counterpart for {type(tree).__name__}")
         return cls(*(params_from_numpy(v, device) for v in tree))

@@ -49,7 +49,7 @@ MAX_COMPONENTS = 4
 MAX_FACTORS = 4
 ROW_TILE = 64        # BM of the kernels: rows per block, rows per dot partial
 _COL_TILE = 64       # BN of the kernels
-_SPLIT_TILES = 64    # column tiles per split of kmvm_fused (4096 columns)
+_SPLIT_TILES = 64    # default column tiles per split of B1/B2 (4096 columns)
 _PLAIN_ROWS = 1024   # row block of the plain versions
 
 _count_lock = threading.Lock()
@@ -210,18 +210,23 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def _column_split(m: int, n: int, t: int) -> tuple[int, int]:
+def _column_split(m: int, n: int, t: int,
+                  split_tiles: int | None = None) -> tuple[int, int]:
     """(nsplit, tiles_per_split) of `kmvm_fused`'s column range.
 
     The split fills the card when the row tiles alone are too few (a
     1024-row prediction chunk, B2's 1024 row tiles at 2^16 rows). It
-    depends on n only, so a row's result is bitwise the same whatever the
-    number of rows in the launch (a padded serving chunk and an unchunked
-    call agree exactly); only a partial buffer above 1 GiB makes it
-    coarser.
+    depends on n and `split_tiles` only (None = `_SPLIT_TILES`, 0 = the
+    whole column range in one split; `kernels.autotune` picks it per n, d
+    and t, never per launch rows), so a row's result is bitwise the same
+    whatever the number of rows in the launch (a padded serving chunk and
+    an unchunked call agree exactly); only a partial buffer above 1 GiB
+    makes it coarser.
     """
     ntiles = -(-n // _COL_TILE)
-    per = _SPLIT_TILES
+    per = _SPLIT_TILES if split_tiles is None else (split_tiles or ntiles)
+    if per < 1:
+        raise ValueError(f"split_tiles must be >= 0 or None, got {split_tiles}")
     while -(-ntiles // per) * m * t * 4 > (1 << 30) and per < ntiles:
         per *= 2
     return -(-ntiles // per), per
@@ -241,11 +246,14 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
-def kmvm_fused(components, Xi, Xj, V, scalars) -> torch.Tensor:
+def kmvm_fused(components, Xi, Xj, V, scalars,
+               split_tiles: int | None = None) -> torch.Tensor:
     """Fused [sum_c w_c prod_f phi(q d2(Xi, Xj))] @ V -> (m, t) fp32.
 
     Xi (m, d), Xj (n, d), V (n, t) in one operand dtype (fp32 or bf16);
     scalars (L,) fp32 in `scalar_layout` order. Any m, n, d, t >= 1.
+    split_tiles: column tiles per split (`_column_split`); the plain
+    version has no split and ignores it.
     """
     if Xi.device.type == "cpu":
         return kmvm_plain(components, Xi, Xj, V, scalars)
@@ -254,7 +262,7 @@ def kmvm_fused(components, Xi, Xj, V, scalars) -> torch.Tensor:
     n, t = V.shape
     if m == 0 or n == 0:
         return torch.zeros((m, t), dtype=torch.float32, device=Xi.device)
-    nsplit, per = _column_split(m, n, t)
+    nsplit, per = _column_split(m, n, t, split_tiles)
     out = torch.empty((m, t), dtype=torch.float32, device=Xi.device)
     part = _split_buffer(nsplit, m, t, Xi.device)
     lib = build.library()
@@ -268,12 +276,14 @@ def kmvm_fused(components, Xi, Xj, V, scalars) -> torch.Tensor:
     return out
 
 
-def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars):
+def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars,
+                    split_tiles: int | None = None):
     """The fused-CG step: (out (m, t) fp32, dots (4, t) fp32), dots rows
     [<Kv, v>, <r, v>, <r, r>, <v, v>] per column from the unscaled fp32 row
     views Vrow, R (m, t). No noise term: the caller adds sigma^2. out is
-    `kmvm_fused`'s bit for bit (the same column split, summed in split
-    order); each 64-row tile's dots are summed in tile order."""
+    `kmvm_fused`'s bit for bit at the same `split_tiles` (the same column
+    split, summed in split order); each 64-row tile's dots are summed in
+    tile order."""
     if Xi.device.type == "cpu":
         return kmvm_dots_plain(components, Xi, Xj, V, Vrow, R, scalars)
     dtype_code = _check_launch(components, scalars, (Xi, Xj, V),
@@ -282,7 +292,7 @@ def kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars):
     n, t = V.shape
     if m == 0 or n == 0:
         raise ValueError(f"kmvm_fused_dots needs m, n >= 1, got {m}, {n}")
-    nsplit, per = _column_split(m, n, t)
+    nsplit, per = _column_split(m, n, t, split_tiles)
     out = torch.empty((m, t), dtype=torch.float32, device=Xi.device)
     part = _split_buffer(nsplit, m, t, Xi.device)
     partials = torch.empty((-(-m // ROW_TILE), 4, t), dtype=torch.float32,

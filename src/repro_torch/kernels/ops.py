@@ -131,11 +131,11 @@ def _scale_rhs(ppass: _FusedPass, V, cdt):
     return (ppass.base_weight * V.to(torch.float32)).to(cdt).contiguous()
 
 
-def _run_pass(ppass: _FusedPass, Xi, Xj, V, cdt):
+def _run_pass(ppass: _FusedPass, Xi, Xj, V, cdt, split_tiles):
     """One fused launch; returns the (m, t) fp32 contribution."""
     return kmvm_fused(ppass.components, _prescale(ppass, Xi, cdt),
                       _prescale(ppass, Xj, cdt), _scale_rhs(ppass, V, cdt),
-                      _pass_scalar_vector(ppass, Xi.device))
+                      _pass_scalar_vector(ppass, Xi.device), split_tiles)
 
 
 def _mixed_dot(A, B, cdt):
@@ -144,13 +144,16 @@ def _mixed_dot(A, B, cdt):
     return A.to(cdt).to(torch.float32) @ B.to(cdt).to(torch.float32)
 
 
-def kmvm_block(kernel, Xi, Xj, V, params, *, compute_dtype=None) -> torch.Tensor:
+def kmvm_block(kernel, Xi, Xj, V, params, *, compute_dtype=None,
+               split_tiles: int | None = None) -> torch.Tensor:
     """K(Xi, Xj) @ V via the fused plan; arbitrary shapes and dtypes.
 
     Semantics identical to `repro_torch.kernels.ref.kmvm_ref` (no noise
     term). `compute_dtype` is the operand dtype of the kernel's products:
     None/"float32" is the exact path, "bfloat16" halves operand traffic.
-    Tile sizes are the kernel's own (no `bm`/`bn`, no interpret mode).
+    Tile sizes are the kernel's own (no `bm`/`bn`, no interpret mode);
+    `split_tiles` is the column split of every fused launch (None = the
+    kernels' default; `kernels.autotune` picks it for the operator).
     """
     cdt = _compute_dtype(compute_dtype)
     squeeze = V.ndim == 1
@@ -160,7 +163,7 @@ def kmvm_block(kernel, Xi, Xj, V, params, *, compute_dtype=None) -> torch.Tensor
     plan = mvm_plan(kernel, params)
     acc = None
     for ppass in plan.passes:
-        out = _run_pass(ppass, Xi, Xj, V, cdt)
+        out = _run_pass(ppass, Xi, Xj, V, cdt, split_tiles)
         acc = out if acc is None else acc + out
     for w, p in plan.linear_terms:
         s = softplus(p.raw_scale)
@@ -225,13 +228,15 @@ def fused_pass_or_none(kernel, params) -> _FusedPass | None:
     return None
 
 
-def kmvm_fused_matmat(kernel, X, V, R, params, *, compute_dtype=None):
+def kmvm_fused_matmat(kernel, X, V, R, params, *, compute_dtype=None,
+                      split_tiles: int | None = None):
     """K(X, X) @ V plus the CG dot block, in ONE kernel launch.
 
     Returns (KV (n, t) fp32, dots (4, t) fp32) with dots rows
     [<Kv, v>, <r, v>, <r, r>, <v, v>] per column. No noise term: the caller
     adds sigma^2 V to KV and sigma^2 <v, v> to dots[0]. Raises ValueError
-    unless the spec plans to a single fused pass.
+    unless the spec plans to a single fused pass. KV is `kmvm_block`'s bit
+    for bit at the same `split_tiles`.
     """
     cdt = _compute_dtype(compute_dtype)
     ppass = fused_pass_or_none(kernel, params)
@@ -244,7 +249,7 @@ def kmvm_fused_matmat(kernel, X, V, R, params, *, compute_dtype=None):
     return kmvm_fused_dots(
         ppass.components, Xs, Xs, _scale_rhs(ppass, V, cdt),
         V.to(torch.float32).contiguous(), R.to(torch.float32).contiguous(),
-        _pass_scalar_vector(ppass, X.device))
+        _pass_scalar_vector(ppass, X.device), split_tiles)
 
 
 def pallas_block_fn(kernel, *, compute_dtype=None):

@@ -26,7 +26,8 @@ rows (single-device `fit_posterior` on the same backend) and saves it.
 Rank 0 prints one line per step; `main` returns a report dict.
 
 The LM stack (`--arch` other than gp-exact-1m, with --batch / --seq /
---lr / --full / --ckpt) is not ported (ROADMAP A8) and raises.
+--lr / --full / --ckpt) is not ported (ROADMAP A, "DKL and the LM stack")
+and raises.
 """
 
 from __future__ import annotations
@@ -73,8 +74,8 @@ def parse_args(argv=None):
     ap.add_argument("--save-artifact", default="",
                     help="directory: persist a servable PosteriorArtifact")
     ap.add_argument("--obs-trace", default="",
-                    help="span tracing (repro.obs) is not ported (ROADMAP "
-                         "A7); giving a path raises")
+                    help="the launcher's span tracing is not ported (ROADMAP "
+                         "A, \"the rest of obs/\"); giving a path raises")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' on purpose)")
     return ap.parse_args(argv)
@@ -84,12 +85,15 @@ def main(argv=None) -> dict:
     """Run the launcher; returns the report of the GP path."""
     args = parse_args(argv)
     if args.obs_trace:
-        raise NotImplementedError("--obs-trace: repro_torch has no obs "
-                                  "package yet (ROADMAP A7)")
+        raise NotImplementedError(
+            "--obs-trace: the trainer's spans and the launcher's trace are "
+            "not ported to repro_torch.obs yet (ROADMAP A, \"the rest of "
+            "obs/\")")
     if args.arch != GP_ARCH:
         raise NotImplementedError(
             f"--arch {args.arch!r}: the LM stack is not ported to repro_torch "
-            f"(ROADMAP A8); only --arch {GP_ARCH} runs")
+            f"(ROADMAP A, \"DKL and the LM stack\"); only --arch {GP_ARCH} "
+            f"runs")
     return _train_gp(args)
 
 

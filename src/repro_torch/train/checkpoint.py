@@ -9,7 +9,9 @@ writer never corrupts the latest complete checkpoint. The npz keys are the
 reference's `jax.tree_util.keystr` paths — ``['params'].raw_noise``,
 ``['params'].nodes[0].raw_outputscale``, ``['X']`` — over a tree of dicts
 (keys sorted, as jax flattens them), NamedTuples (field order) and tuples,
-so that each package reads the other's files.
+so that each package reads the other's files. `CheckpointManager` saves
+every k steps, keeps the newest K complete checkpoints and resumes from the
+latest, as the reference's.
 """
 
 from __future__ import annotations
@@ -125,3 +127,37 @@ def load_checkpoint(directory: str, template: Any, step: int | None = None,
         return arr
 
     return tree_map_with_keys(restore, template), step, manifest["meta"]
+
+
+class CheckpointManager:
+    """save-every-k + retention + auto-resume convenience wrapper."""
+
+    def __init__(self, directory: str, *, save_every: int = 100, keep: int = 3):
+        self.directory = directory
+        self.save_every = save_every
+        self.keep = keep
+
+    def maybe_save(self, step: int, tree: Any, meta: dict | None = None,
+                   force: bool = False) -> str | None:
+        if not force and (step % self.save_every != 0):
+            return None
+        path = save_checkpoint(self.directory, step, tree, meta)
+        self._retain()
+        return path
+
+    def restore_or_init(self, template: Any) -> tuple[Any, int, dict]:
+        """Resume from the latest complete checkpoint, else (template, 0, {})."""
+        try:
+            return load_checkpoint(self.directory, template)
+        except FileNotFoundError:
+            return template, 0, {}
+
+    def _retain(self):
+        steps = _complete_steps(self.directory)
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    def latest_step(self) -> int | None:
+        steps = _complete_steps(self.directory)
+        return steps[-1] if steps else None

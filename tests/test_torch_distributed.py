@@ -456,5 +456,5 @@ def test_launcher_world_of_two(tmp_path):
 def test_launcher_refuses_other_archs():
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="the LM stack"):
         train.main(["--arch", "lm-small", "--device", "cpu"])

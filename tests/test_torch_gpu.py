@@ -11,6 +11,8 @@ as the reference's kernel tests use; the kernel and its plain version differ
 only in summation order.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -217,6 +219,77 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         kmvm.kmvm_fused(((("matern32",),) * 5), Xi, Xj, V,
                         torch.ones(10, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# B1/B2 at the autotuner's column splits (kernels.autotune)
+# ---------------------------------------------------------------------------
+
+SPLITS = (16, 32, 64, 128, 256, 0)   # autotune.DEFAULT_CANDIDATES
+
+
+@pytest.mark.parametrize("t", (1, 9, 128))
+@pytest.mark.parametrize("split", SPLITS)
+def test_every_candidate_split_matches_plain_and_keeps_the_pins(cuda, split, t):
+    """At each split the autotuner may pick: B1 and B2 against their plain
+    versions; B2's out equals B1's bit for bit; a row's B1/B2 result is the
+    same bit for bit in a 64-, a 512- and a 1024-row launch."""
+    from repro_torch.kernels import autotune
+
+    assert autotune.DEFAULT_CANDIDATES == SPLITS
+    components, scal = SPECS["matern32"]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    Xi, Xj, V, Vrow, R = _inputs(1024, 20000, 9, t, torch.float32, cuda)
+    out = kmvm.kmvm_fused(components, Xi, Xj, V, scalars, split)
+    out2, dots = kmvm.kmvm_fused_dots(components, Xi, Xj, V, Vrow, R, scalars,
+                                      split)
+    torch.cuda.synchronize()
+    ref, ref_dots = kmvm.kmvm_dots_plain(components, Xi, Xj, V, Vrow, R, scalars)
+    assert _rel_err(out, ref) <= TOL[torch.float32]
+    assert _rel_err(out2, ref) <= TOL[torch.float32]
+    assert torch.equal(out, out2)
+    for q in (0, 2, 3):   # <Kv, v>, <r, r>, <v, v>: no cancellation
+        assert _rel_err(dots[q], ref_dots[q]) <= TOL[torch.float32], q
+    for rows in (512, 64):
+        part = kmvm.kmvm_fused(components, Xi[:rows].contiguous(), Xj, V,
+                               scalars, split)
+        part2, _ = kmvm.kmvm_fused_dots(
+            components, Xi[:rows].contiguous(), Xj, V,
+            Vrow[:rows].contiguous(), R[:rows].contiguous(), scalars, split)
+        assert torch.equal(out[:rows], part), rows
+        assert torch.equal(out[:rows], part2), rows
+
+
+def test_autotuned_operator_sweeps_on_the_card_and_keeps_b2_equal_to_b1(
+        cuda, tmp_path, monkeypatch):
+    """A real sweep (CUDA-event timings of B1 + B2 at each candidate) into an
+    empty cache; the pallas operator with autotune=True launches at the
+    swept split: its MVM agrees with the default split's within the
+    tolerance, and B2's product equals B1's bit for bit."""
+    from repro_torch import obs
+    from repro_torch.core.kernels_math import init_params
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path))
+    autotune.clear_memo()
+    obs.registry().reset("autotune.")
+    X, _, V, _, R = _inputs(8192, 8192, 9, 9, torch.float32, cuda)
+    ops_ = {on: make_operator(OperatorConfig(kernel="matern32",
+                                             backend="pallas", autotune=on),
+                              X, init_params(noise=0.1, device=cuda),
+                              device=cuda) for on in (False, True)}
+    before = dict(kmvm.launch_counts)
+    tuned = ops_[True].matvec(V)
+    snap = obs.registry().snapshot()
+    assert snap["autotune.sweeps"] == 1 and len(os.listdir(tmp_path)) == 1
+    # each candidate: a warm-up and 3 timed launches of B1 and of B2
+    n_cand = len(autotune.DEFAULT_CANDIDATES)
+    assert kmvm.launch_counts["kmvm_dots"] - before["kmvm_dots"] == 4 * n_cand
+    assert _rel_err(tuned, ops_[False].matvec(V)) <= TOL[torch.float32]
+    out, _ = ops_[True].fused_matvec_dots(V, R)
+    assert torch.equal(out, tuned)
+    autotune.clear_memo()
 
 
 # ---------------------------------------------------------------------------

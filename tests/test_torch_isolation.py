@@ -6,13 +6,15 @@
 * Entry points with no `device` raise when there is no card, rather than
   running on the CPU (the operators, the posterior fit and engine, the
   launchers, the serving fleet, training: `fit_exact_gp`, `exact_mll`, the
-  blocksparse backend, and the distributed engine: `init_distributed`,
-  `make_mesh`, `make_host_mesh`, the sharded operator).
+  blocksparse backend, the distributed engine: `init_distributed`,
+  `make_mesh`, `make_host_mesh`, the sharded operator, and the baselines:
+  `fit_sgpr`, `fit_svgp`, `init_sgpr_params`, `init_svgp_params`).
 * A non-CPU tensor handed to a kernel wrapper never reaches the plain
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
 """
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -28,7 +30,8 @@ from repro_torch.kernels import kmvm
 from repro_torch.serve import PredictionEngine, fit_posterior
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -58,6 +61,9 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch.train.gp_trainer, repro_torch.sparse\n"
         "import repro_torch.core.distributed, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.obs\n"
+        "import repro_torch.core.sgpr, repro_torch.core.svgp\n"
+        "import repro_torch.kernels.autotune, repro_torch.train.checkpoint\n"
+        "from repro_torch.train import CheckpointManager, fit_sgpr, fit_svgp\n"
         "from repro_torch.serve import ServeFleet, ContinuousBatcher\n"
         "X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)\n"
         "op = make_operator(OperatorConfig(backend='pallas'), X, init_params(),"
@@ -71,6 +77,28 @@ def test_port_runs_with_jax_unimportable():
                          text=True, timeout=300, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_quickstart_runs_with_jax_unimportable(tmp_path):
+    """examples/quickstart_torch.py on the CPU: the paper's comparison at the
+    quickstart's size, the exact GP ahead of both baselines."""
+    code = (
+        "import sys, json; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import quickstart_torch\n"
+        f"rows = quickstart_torch.main(['--device', 'cpu', '--artifact', {str(tmp_path)!r}])\n"
+        "print(json.dumps(rows))\n")
+    # one thread: beside a loaded test run, a many-threaded CPU torch stalls
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    rows = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(rows) == {"exact", "sgpr", "svgp", "engine"}
+    assert all(np.isfinite(v) for r in rows.values() for v in r.values())
+    assert rows["exact"]["rmse"] < min(rows["sgpr"]["rmse"], rows["svgp"]["rmse"])
+    assert abs(rows["engine"]["rmse"] - rows["exact"]["rmse"]) < 1e-4
 
 
 def test_tf32_is_off():
@@ -115,6 +143,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                      backend="blocksparse"), X,
                       init_kernel_params("matern32 * wendland2"))
     assert BlockSparseOperator.grad_backend == "blocksparse"
+
+
+def test_baseline_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.core import init_sgpr_params, init_svgp_params
+    from repro_torch.train import fit_sgpr, fit_svgp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.random.default_rng(0).normal(size=(16, 2)).astype(np.float32)
+    y = np.ones(16, np.float32)
+    for call in (lambda: fit_sgpr("matern32", X, y, 4, steps=1),
+                 lambda: fit_svgp("matern32", X, y, 4, epochs=1, batch=8),
+                 lambda: init_sgpr_params(X, 4),
+                 lambda: init_svgp_params(X, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.mark.parametrize("dots", (False, True))
