@@ -84,6 +84,27 @@ caught and skipped):
    0.06, and in fp32 each device's value lies 1e-4..1e-3 of itself from
    the fp64 one, with the order of the sums; PERF.md). Whether the exact
    GP's RMSE beats both baselines is printed, not gated.
+4c. Tracing (`repro_torch.obs`) on phase 4's training: `fit_exact_gp`
+   exactly as the serve launcher runs it (matern32 on `pallas`, fp32,
+   L-BFGS and Adam on a 512-point subset, two full-data steps) on phase
+   4's draw at n = 2^16, d = 9, untraced and then under
+   `obs.trace_session` with the health sink and profiling on, from the same
+   seed and initial parameters. The trace goes through `obs_report`'s
+   `main()` with `--compare-model --hbm-gbps 3350 --health`; printed: per
+   phase the measured ms, the modeled bytes, the modeled ms at 3350 GB/s
+   and their ratio, each phase's share of the full-data training steps,
+   and the traced fit's seconds beside the untraced one's; the phase
+   table's self-times against the fit's wall are printed (they add up by
+   construction). Then one traced cold `WarmStartEngine.step` at the
+   trained parameters, launch counts set to 0 just before it and read just
+   after. Gates: the same telemetry modes; loss traces equal bit for bit
+   (else within 1e-6 relative); the spans fit_exact_gp, optimizer_step,
+   mll_step, precond_build, cg_solve, slq_logdet and eq2_backward; the
+   four phase spans within 1% of the mll_step spans that hold them (work
+   escaping a phase's fence would land outside them); the cold step's B1 +
+   B2 launches equal its cg_solve span's modeled launches; a memory
+   snapshot with cuda0's bytes in use > 0; no health event of severity
+   error.
 5. Block-sparse kernel B4 (`kmvm_blocksparse`) against its plain version
    (same tolerances): plan tiles 8, 32, 64 and 256 on ragged n, t in
    {1, 9, 128}, fp32 and bf16, specs `matern32 * wendland2`, `wendland4`,
@@ -150,14 +171,19 @@ caught and skipped):
    engine (checked against the unchunked result, <= 1e-5). The two routes'
    test RMSE must agree within 2%; one MVM with overlap on and off must be
    bit for bit equal; B3's launch counter, set to 0 just before the phase,
-   must be > 0 after it. Step seconds, CG iterations, the solve's residual
-   and iterations and peak memory are printed.
+   must be > 0 after it. The launcher runs with `--obs-trace`: its trace
+   must hold one `mll_step` span per step and goes through `obs_report`;
+   `obs.measure.collective_microbench` on the one-rank group must return
+   [] (one rank has nothing to transfer). Step seconds, CG iterations, the
+   solve's residual and iterations and peak memory are printed.
 10. Distributed blocksparse cross-check: the MLL value and Eq. 2
    gradients of `ShardedOperator(inner_backend="blocksparse")` (B4 per
    ring chunk) against the single-device blocksparse MLL on the spatial
    field at n = 2^13, same injected probes and preconditioner, within the
    conformance tolerances (as phase 7).
-11. The `kernels` JSON line, then the last line
+11. The phases' seconds beside the card's name and power limit (again, so
+   the end of the output holds them), the `kernels` JSON line, then the
+   last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: a kernel's `bound_ms` is the larger of its bytes (each input read
@@ -228,11 +254,16 @@ def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name} x{torch.cuda.device_count()} torch {torch.__version__} "
         f"cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(card_and_power_limit())
+    return name
+
+
+def card_and_power_limit() -> str:
+    """The first card's `nvidia-smi` name and power limit."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
-    return name
+    return smi.splitlines()[0]
 
 
 def phase_build() -> dict:
@@ -1008,6 +1039,152 @@ def phase_table1(serve: dict, art, s) -> dict:
             "exact_beats_both": beats}
 
 
+PHASES = ("precond_build", "cg_solve", "slq_logdet", "eq2_backward")
+PHASE4C_SPANS = {"fit_exact_gp", "optimizer_step", "mll_step", *PHASES}
+
+
+def phase_traced_fit(s) -> dict:
+    """Phase 4c: phase 4's training (`fit_exact_gp` as serve_gp runs it) on
+    phase 4's draw, untraced and then traced with the health sink and
+    profiling on, from the same seed and initial parameters; the trace
+    through `obs_report --compare-model --health`; then one traced cold
+    `WarmStartEngine.step` at the trained parameters under
+    whose B1 + B2 launches must equal its cg_solve span's modeled
+    launches."""
+    from repro_torch import obs
+    from repro_torch.core.gp import ExactGP, ExactGPConfig
+    from repro_torch.kernels import kmvm
+    from repro_torch.launch import obs_report
+    from repro_torch.obs import health
+    from repro_torch.obs.measure import phase_model_comparison
+    from repro_torch.obs.report import assign_self_times, load_trace, phase_breakdown
+    from repro_torch.train.gp_trainer import GPTrainConfig, fit_exact_gp
+    from repro_torch.train.solver_state import WarmStartEngine
+
+    X = torch.as_tensor(s.X_train[:N_TRAIN], dtype=torch.float32, device=DEV)
+    y = torch.as_tensor(s.y_train[:N_TRAIN], dtype=torch.float32, device=DEV)
+    # phase 4's training configuration (`launch/serve_gp.py`)
+    gp = ExactGP(ExactGPConfig(kernel="matern32", backend="pallas",
+                               row_block=512, precond_rank=100,
+                               lanczos_rank=128), device=DEV)
+    cfg = GPTrainConfig(pretrain_subset=512, pretrain_lbfgs_steps=3,
+                        pretrain_adam_steps=3, finetune_adam_steps=2)
+    params0 = gp.init_params(X.shape[1], noise=0.5, dtype=X.dtype)
+
+    def fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_exact_gp(gp, X, y, cfg=cfg, params0=params0, device=DEV)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res0, plain_s = fit()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    tpath, hpath = os.path.join(tmp, "trace.jsonl"), os.path.join(tmp, "health.jsonl")
+    obs.registry().reset()
+    health.enable_health(hpath)
+    obs.enable_profiling()
+    with obs.trace_session(tpath):
+        res1, traced_s = fit()
+        mem = obs.memory_snapshot("phase4c")
+    obs.disable_profiling()
+    health.disable_health()
+
+    modes0 = [t["mode"] for t in res0.telemetry]
+    modes1 = [t["mode"] for t in res1.telemetry]
+    loss_rel = max(abs(a - b) / max(abs(a), 1e-30)
+                   for a, b in zip(res0.loss_trace, res1.loss_trace))
+    events, _ = load_trace(tpath)
+    spans = assign_self_times(events)
+    names = {sp.name for sp in spans}
+    # the phase table's self-times add up to the root's wall by construction
+    # (the root keeps what its children do not cover): printed, not gated
+    rows, wall = phase_breakdown(spans, root="fit_exact_gp")
+    covered = sum(r.self_ms for r in rows)
+    # the fenced phase spans against the mll_step spans that hold them: work
+    # that escaped a phase's fence would land in mll_step's own time
+    mll_ms = sum(sp.dur for sp in spans if sp.name == "mll_step") / 1e3
+    phase_ms = sum(sp.dur for sp in spans if sp.name in PHASES) / 1e3
+    log(f"[obs] fit_exact_gp untraced {plain_s:.3f} s, traced {traced_s:.3f} s "
+        f"({traced_s / plain_s - 1:+.1%}); modes {modes0} / {modes1}; loss "
+        f"traces bit for bit {res0.loss_trace == res1.loss_trace} (max rel "
+        f"diff {loss_rel:.3e}); spans {sorted(names)}; phase self-times "
+        f"{covered:.1f} ms of the {wall:.1f} ms wall; phase spans {phase_ms:.1f}"
+        f" ms of the mll_step spans' {mll_ms:.1f} ms; memory {mem}")
+    log(f"[obs] telemetry {json.dumps(list(res1.telemetry))}")
+
+    # the share of a full-data training step (mll_step + optimizer_step)
+    # spent in each phase, and measured vs modeled at 3350 GB/s
+    step_ms = sum(sp.dur for sp in spans
+                  if sp.name in ("mll_step", "optimizer_step")) / 1e3
+    share = {}
+    for name in PHASES + ("optimizer_step",):
+        ms = sum(sp.dur for sp in spans if sp.name == name) / 1e3
+        share[name] = {"ms": ms, "share": ms / step_ms}
+    share["mll_step (self)"] = {
+        "ms": step_ms - sum(v["ms"] for v in share.values())}
+    share["mll_step (self)"]["share"] = share["mll_step (self)"]["ms"] / step_ms
+    cmp_rows = phase_model_comparison(events, hbm_gbps=3350.0)
+    for r in cmp_rows:
+        log(f"[obs] {r['backend']} {r['phase']}: {r['steps']} steps, measured "
+            f"{r['measured_ms']:.2f} ms, modeled {r['modeled_gb']:.4f} GB = "
+            f"{r['modeled_ms']:.3f} ms at 3350 GB/s, ratio {r['ratio']:.2f}, "
+            f"modeled launches {r['modeled_launches']}")
+    log(f"[obs] full-data steps {step_ms:.1f} ms: " + ", ".join(
+        f"{k} {v['ms']:.1f} ms ({v['share']:.1%})" for k, v in share.items()))
+    log("[obs] obs_report --compare-model --hbm-gbps 3350 --health:")
+    obs_report.main([tpath, "--compare-model", "--hbm-gbps", "3350",
+                     "--health", hpath])
+    health_events = health.load_health(hpath)
+
+    # one traced cold step at the trained parameters: the launches the card
+    # made against the cost model's cg_solve launches (the other phases run
+    # plain PyTorch: pivot rows, the SLQ eigensolves, the autograd backward)
+    engine = WarmStartEngine(gp.config.mll_config(), cfg.warm_config())
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    obs.enable_tracing(None)
+    torch.cuda.synchronize()
+    kmvm.reset_launch_counts()
+    t1 = time.perf_counter()
+    engine.step(X, y, res1.params, gen)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    step_counts = dict(kmvm.launch_counts)
+    obs.disable_tracing(snapshot_metrics=False)
+    step_events = obs.drain_events()
+    cg = [e for e in step_events if e.get("name") == "cg_solve"]
+    modeled = cg[0]["args"]["modeled_launches"] if len(cg) == 1 else None
+    b12 = step_counts["kmvm"] + step_counts["kmvm_dots"]
+    log(f"[obs] cold step at the trained params: {engine.telemetry[-1]['mode']}"
+        f", {step_s:.3f} s, cg_iters_per_rhs "
+        f"{engine.telemetry[-1]['cg_iters_per_rhs']}, B1 + B2 launches "
+        f"{step_counts} = {b12}, cg_solve modeled launches {modeled}")
+    gates = {
+        "traced and untraced fits give the same modes": modes0 == modes1,
+        "loss traces agree (bit for bit, else within 1e-6)":
+            res0.loss_trace == res1.loss_trace or loss_rel <= 1e-6,
+        "the span set": PHASE4C_SPANS <= names,
+        "the phase spans cover the mll_step spans within 1%":
+            mll_ms > 0 and abs(phase_ms - mll_ms) <= 0.01 * mll_ms,
+        "cold step's B1 + B2 launches == cg_solve's modeled launches":
+            modeled is not None and b12 == modeled,
+        "memory snapshot of cuda0 > 0": mem.get("cuda0", 0) > 0,
+        "no health event of severity error":
+            not [e for e in health_events if e.get("severity") == "error"],
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit(f"[obs] gates failed: {failed}")
+    return {"plain_s": plain_s, "traced_s": traced_s, "loss_rel": loss_rel,
+            "bitwise": res0.loss_trace == res1.loss_trace, "rows": cmp_rows,
+            "share": share, "wall_ms": wall, "covered_ms": covered,
+            "mll_ms": mll_ms, "phase_ms": phase_ms,
+            "step_launches": step_counts, "modeled_launches": modeled,
+            "step_s": step_s,
+            "health": [e["kind"] for e in health_events], "memory": mem}
+
+
 def phase_spatial_observe(art, X_new, y_new, Xq) -> dict:
     """The spatial artifact in a one-model fleet absorbs 64 new field
     points: the plan is rebuilt over the extended inputs, the warm PCG runs
@@ -1280,8 +1457,8 @@ def phase_spatial(X, y, Xte, lte) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_b4 = kmvm_sparse.launch_counts["kmvm_blocksparse"]
-    steps = [{k: tm[k] for k in ("mode", "cg_iters", "iters_per_rhs", "drift",
-                                 "seconds")} for tm in res.telemetry]
+    steps = [{k: tm[k] for k in ("mode", "cg_iters", "cg_iters_per_rhs",
+                                 "drift", "seconds")} for tm in res.telemetry]
     log(f"[spatial] trained {len(res.loss_trace)} steps in {train_s:.2f} s: "
         f"loss {[round(v, 5) for v in res.loss_trace]}, steps {steps}, "
         f"replans {res.replans}, B4 launches {train_b4}")
@@ -1554,7 +1731,9 @@ def phase_distributed() -> dict:
     from repro_torch.core.distributed import ShardedOperator, make_mean_cache_solve
     from repro_torch.core.operators import OperatorConfig, make_operator
     from repro_torch.kernels import kmvm
-    from repro_torch.launch import train
+    from repro_torch.launch import obs_report, train
+    from repro_torch.obs.measure import collective_microbench
+    from repro_torch.obs.report import load_trace
     from repro_torch.serve import (
         load_artifact, posterior_from_mean_cache, save_artifact)
 
@@ -1570,17 +1749,19 @@ def phase_distributed() -> dict:
         shutil.rmtree(dname, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    trace_path = os.path.join(store_dir, "dist.jsonl")
     kmvm.reset_launch_counts()
     t0 = time.perf_counter()
     report = train.main([
         "--arch", "gp-exact-1m", "--gp-n", str(DIST_GP_N), "--gp-backend",
         "pallas", "--gp-mode", "2d", "--gp-overlap", "--steps", str(DIST_STEPS),
-        "--save-artifact", single_dir, "--device", DEV])
+        "--save-artifact", single_dir, "--device", DEV,
+        "--obs-trace", trace_path])
     torch.cuda.synchronize()
     launch_s = time.perf_counter() - t0
     train_counts = dict(kmvm.launch_counts)
-    steps = [{k: tm[k] for k in ("mode", "cg_iters", "iters_per_rhs", "seconds")}
-             for tm in report["telemetry"]]
+    steps = [{k: tm[k] for k in ("mode", "cg_iters", "cg_iters_per_rhs",
+                                 "seconds")} for tm in report["telemetry"]]
     log(f"[dist] launcher (train {DIST_STEPS} steps + single-device "
         f"fit_posterior) {launch_s:.2f} s: n={report['n']}, nll/n "
         f"{[round(v, 5) for v in report['losses']]}, steps {steps}, launches "
@@ -1588,6 +1769,14 @@ def phase_distributed() -> dict:
         f"{report['artifact_rel_residual']:.3e}")
     if not all(np.isfinite(report["losses"])):
         raise SystemExit(f"[dist] non-finite loss {report['losses']}")
+    trace_events, _ = load_trace(trace_path)
+    mll_spans = [e for e in trace_events if e.get("name") == "mll_step"]
+    log(f"[dist] --obs-trace: {len(trace_events)} events, {len(mll_spans)} "
+        f"mll_step spans; obs_report:")
+    obs_report.main([trace_path])
+    if len(mll_spans) != DIST_STEPS:
+        raise SystemExit(f"[dist] the trace holds {len(mll_spans)} mll_step "
+                         f"spans for {DIST_STEPS} steps")
 
     mesh, geom, cfg = report["mesh"], report["geom"], report["cfg"]
     params, X, y_loc = report["params"], report["X"], report["y_local"]
@@ -1627,6 +1816,11 @@ def phase_distributed() -> dict:
     torch.cuda.synchronize()
     same = torch.equal(outs[0], outs[1])
     diff = abs(rmse_dist - rmse_single) / rmse_single
+    collectives = collective_microbench(mesh, geom)
+    log(f"[dist] collective_microbench on the one-rank group: {collectives}")
+    if collectives != []:
+        raise SystemExit(f"[dist] one rank has no collective to time, got "
+                         f"{collectives}")
     log(f"[dist] mean-cache solve {solve_s:.2f} s, {solve_iters} CG "
         f"iterations (B3 launches), residual {rel:.3e}; posterior Lanczos "
         f"{lanczos_s:.2f} s; engine vs unchunked {check_dist:.2e} / "
@@ -1732,6 +1926,7 @@ def main() -> None:
         art, torch.as_tensor(s.y_train[:N_TRAIN], dtype=torch.float32,
                              device=DEV), s.X_test)
     table1 = phase_table1(serve, art, s)
+    phase_traced_fit(s)
     del art, s
     spatial = phase_spatial(Xf[:SPATIAL_N], yf[:SPATIAL_N],
                             Xf[SPATIAL_N:], lf[SPATIAL_N:])
@@ -1744,7 +1939,8 @@ def main() -> None:
 
     dist.destroy_process_group()
     shutil.rmtree(dist_run["store_dir"], ignore_errors=True)
-    log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s")
+    log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s on "
+        f"{card_and_power_limit()}")
 
     kernels = []
     sources = {"kmvm": ("src/repro_torch/kernels/csrc/kmvm.cu",

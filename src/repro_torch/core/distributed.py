@@ -872,8 +872,8 @@ class DistSolveState(NamedTuple):
 
 class WarmMLLStepFns(NamedTuple):
     """Step functions returned by `make_warm_mll_step`; all return
-    (loss, aux, grads, state) with aux = (logdet, quad, cg_iterations,
-    rel_residual) replicated."""
+    (loss, aux, grads, state) with aux the replicated `MLLAux` (logdet,
+    quad, cg_iterations, rel_residual, and the MVMs the loop ran)."""
 
     cold: Callable     # (X, y, params, generator, probes=None)
     refresh: Callable  # (X, y, params, generator, state, probes=None)
@@ -909,8 +909,7 @@ def make_warm_mll_step(mesh, geom: DistGeometry, cfg: DistMLLConfig, *,
                                            pinv_z, g_value)
         state = DistSolveState(solutions=st.solutions, probes=st.probes,
                                precond=precond.pre, logdet=aux.logdet)
-        aux_t = (aux.logdet, aux.quad, aux.cg_iterations, aux.rel_residual)
-        return -value / geom.n, aux_t, g_params, state
+        return -value / geom.n, aux, g_params, state
 
     def cold(X, y_loc, params, generator, probes=None):
         return _run(X, y_loc, params, generator, precond=None, probes=probes,

@@ -75,6 +75,7 @@ class MLLAux(NamedTuple):
     cg_iterations: torch.Tensor
     rel_residual: torch.Tensor
     residuals: torch.Tensor | None = None
+    cg_mvms: int | None = None   # MVMs the mBCG loop ran (PCGResult.loop_mvms)
 
 
 def operator_mll_forward(op, y, generator: torch.Generator | None = None, *,
@@ -98,37 +99,61 @@ def operator_mll_forward(op, y, generator: torch.Generator | None = None, *,
 
     Returns ((value, aux), (yc, u_y, U, pinv_z), state): the saved solves
     the backward contracts, and the `SolveState` (solutions + probes) for
-    the next step.
+    the next step. The single-device engine calls the three pieces
+    (`operator_mll_solve`, `operator_mll_logdet`, `operator_mll_value`)
+    itself, so that under tracing it can time each one.
     """
-    n = op.shape[0]
+    if precond is None:
+        precond = op.preconditioner(precond_rank)
+    solved = operator_mll_solve(
+        op, y, generator, precond=precond, num_probes=num_probes,
+        max_cg_iters=max_cg_iters, min_cg_iters=min_cg_iters, cg_tol=cg_tol,
+        pcg_method=pcg_method, probes=probes, x0=x0,
+        track_residuals=track_residuals)
+    res = solved[2]
+    logdet = operator_mll_logdet(precond, res) if logdet_carry is None \
+        else logdet_carry
+    return operator_mll_value(op.shape[0], solved, logdet)
+
+
+def operator_mll_solve(op, y, generator, *, precond, num_probes: int,
+                       max_cg_iters: int, min_cg_iters: int, cg_tol: float,
+                       pcg_method: str = "standard", probes=None, x0=None,
+                       track_residuals: bool = False):
+    """The mBCG half of the forward: (yc, probes, PCGResult, pinv_z, quad)."""
     yc = y - constant_mean(op.params)
     if op.local_mask is not None:
         # padded sharded layouts: zero the pad rows of the targets so every
         # CG vector stays in the true-row subspace (n is the TRUE count)
         yc = yc * op.local_mask
-    if precond is None:
-        precond = op.preconditioner(precond_rank)
     if probes is None:
         probes = precond.sample(generator, num_probes, dtype=yc.dtype)
     B = torch.cat([yc[:, None], probes.to(yc.dtype)], dim=1)
     res = pcg(op, B, precond.solve, max_iters=max_cg_iters,
               min_iters=min_cg_iters, tol=cg_tol, method=pcg_method, x0=x0,
               track_residuals=track_residuals)
-    u_y = res.solution[:, 0]
-    U = res.solution[:, 1:]
     pinv_z = precond.solve(probes)
-    if logdet_carry is None:
-        logdet = precond.logdet() + slq_logdet_correction(
-            res.alphas[:, 1:], res.betas[:, 1:], res.active[:, 1:],
-            res.rz0[1:])
-    else:
-        logdet = logdet_carry
-    quad = op.allreduce(torch.dot(yc, u_y))
+    quad = op.allreduce(torch.dot(yc, res.solution[:, 0]))
+    return yc, probes, res, pinv_z, quad
+
+
+def operator_mll_logdet(precond, res) -> torch.Tensor:
+    """The SLQ log-determinant from the probe columns' mBCG coefficients."""
+    return precond.logdet() + slq_logdet_correction(
+        res.alphas[:, 1:], res.betas[:, 1:], res.active[:, 1:], res.rz0[1:])
+
+
+def operator_mll_value(n: int, solved, logdet):
+    """((value, aux), (yc, u_y, U, pinv_z), state) of `operator_mll_forward`
+    from `operator_mll_solve`'s output and the log-determinant."""
+    yc, probes, res, pinv_z, quad = solved
     value = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
     aux = MLLAux(logdet=logdet, quad=quad, cg_iterations=res.iterations,
-                 rel_residual=res.rel_residual, residuals=res.residuals)
+                 rel_residual=res.rel_residual, residuals=res.residuals,
+                 cg_mvms=res.loop_mvms)
     state = res.state._replace(probes=probes)
-    return (value, aux), (yc, u_y, U, pinv_z), state
+    return (value, aux), (yc, res.solution[:, 0], res.solution[:, 1:],
+                          pinv_z), state
 
 
 def operator_mll_quad_grads(make_op, X, u_y, U, pinv_z):

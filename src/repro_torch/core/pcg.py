@@ -72,6 +72,9 @@ class PCGResult(NamedTuple):
     # (max_iters, t) per-iteration relative residuals with
     # track_residuals=True, else None
     residuals: torch.Tensor | None = None
+    # MVMs (kernel-matrix traversals) the loop ran, the warm-init one not
+    # included: one per iteration, plus the pipelined method's first
+    loop_mvms: int = 0
 
     @property
     def state(self) -> SolveState:
@@ -158,7 +161,7 @@ def _all_frozen(j, min_iters, active) -> bool:
     return not bool(active.any())
 
 
-def _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce):
+def _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce, loop_mvms):
     t = u.shape[1]
     alphas = torch.zeros((max_iters, t), dtype=u.dtype, device=u.device)
     betas = torch.zeros_like(alphas)
@@ -174,7 +177,7 @@ def _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce):
         residuals[k:] = residuals[k - 1]
     rel = torch.sqrt(allreduce(torch.sum(r * r, 0)) / b_norm2)
     return PCGResult(u, alphas, betas, actives, rz0, rel, actives.sum(0),
-                     residuals)
+                     residuals, loop_mvms)
 
 
 def _pcg_standard(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
@@ -211,7 +214,7 @@ def _pcg_standard(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
         ys.append((alpha, beta, active, rel))
         if _all_frozen(j, min_iters, active):
             break
-    return _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce)
+    return _finish(u, r, b_norm2, rz0, ys, max_iters, allreduce, len(ys))
 
 
 def _pcg_pipelined(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
@@ -267,4 +270,5 @@ def _pcg_pipelined(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
         ys.append((alpha, beta, active, rel))
         if _all_frozen(j, min_iters, active):
             break
-    return _finish(x, r, b_norm2, rz0, ys, max_iters, allreduce)
+    return _finish(x, r, b_norm2, rz0, ys, max_iters, allreduce,
+                   len(ys) + 1)

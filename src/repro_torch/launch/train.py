@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gp-exact-1m \
         [--gp-n 8192] [--steps 100] [--gp-mode 1d|2d] \
         [--gp-backend partitioned|pallas|blocksparse] [--gp-overlap] \
-        [--data D] [--model M] [--save-artifact DIR] [--device cuda|cpu]
+        [--data D] [--model M] [--save-artifact DIR] [--device cuda|cpu] \
+        [--obs-trace trace.jsonl]
 
     torchrun --nproc_per_node=8 -m repro_torch.launch.train \
         --arch gp-exact-1m --gp-n 786432 --gp-mode 2d --model 2 ...
@@ -24,6 +25,10 @@ runs replan the sparsity whenever the hyperparameters drift past the plan's
 margin. `--save-artifact` fits a servable posterior on rank 0 on the true
 rows (single-device `fit_posterior` on the same backend) and saves it.
 Rank 0 prints one line per step; `main` returns a report dict.
+`--obs-trace PATH` traces the run (`repro_torch.obs`: an `mll_step` span
+per step with the solver record's counters) and writes the JSONL when it
+ends, rank 0 to PATH and rank r > 0 to PATH.rank<r>; render it with
+`python -m repro_torch.launch.obs_report PATH`.
 
 The LM stack (`--arch` other than gp-exact-1m, with --batch / --seq /
 --lr / --full / --ckpt) is not ported (ROADMAP A, "DKL and the LM stack")
@@ -74,8 +79,10 @@ def parse_args(argv=None):
     ap.add_argument("--save-artifact", default="",
                     help="directory: persist a servable PosteriorArtifact")
     ap.add_argument("--obs-trace", default="",
-                    help="the launcher's span tracing is not ported (ROADMAP "
-                         "A, \"the rest of obs/\"); giving a path raises")
+                    help="path: write a repro_torch.obs span-trace JSONL for "
+                         "this run (render with `python -m repro_torch.launch."
+                         "obs_report <path>`); equivalent to setting "
+                         "REPRO_TORCH_OBS_TRACE")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' on purpose)")
     return ap.parse_args(argv)
@@ -84,11 +91,6 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Run the launcher; returns the report of the GP path."""
     args = parse_args(argv)
-    if args.obs_trace:
-        raise NotImplementedError(
-            "--obs-trace: the trainer's spans and the launcher's trace are "
-            "not ported to repro_torch.obs yet (ROADMAP A, \"the rest of "
-            "obs/\")")
     if args.arch != GP_ARCH:
         raise NotImplementedError(
             f"--arch {args.arch!r}: the LM stack is not ported to repro_torch "
@@ -135,15 +137,31 @@ def prepare_gp_data(mesh, X_host, y_host, *, backend, gp_mode, kernel,
 
 
 def _train_gp(args) -> dict:
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(data=args.data, model=args.model, device=args.device)
+    lead = mesh.rank == 0
+    if args.obs_trace:
+        from repro_torch import obs
+
+        obs.enable_tracing(args.obs_trace if lead
+                           else f"{args.obs_trace}.rank{mesh.rank}")
+        try:
+            return _train_gp_run(args, mesh)
+        finally:
+            obs.disable_tracing()
+    return _train_gp_run(args, mesh)
+
+
+def _train_gp_run(args, mesh) -> dict:
     from repro_torch.core.distributed import DistMLLConfig, replicate, shard_vector
     from repro_torch.core.kernels_math import (
         KERNEL_KINDS, init_params_for, parse_kernel, spec_expr)
     from repro_torch.data.synthetic import make_regression_dataset
-    from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
+    from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.optim import adam_init, adam_update
     from repro_torch.train.solver_state import DistWarmStartEngine, WarmStartConfig
 
-    mesh = make_host_mesh(data=args.data, model=args.model, device=args.device)
     lead = mesh.rank == 0
 
     def say(msg):

@@ -7,9 +7,10 @@ solve, never per element and never between kernel launches. Values that
 live on the card (CG iterations, residuals) are recorded after the caller
 has brought them to the host.
 
-Instrument names are dotted lowercase, subsystem first (`serve.batch_rows`,
-`serve.slo.<model>`). `snapshot()` returns a plain-JSON dict keyed by those
-names (histograms summarize to count/mean/percentiles).
+Instrument names are dotted lowercase, subsystem first (`cg.iters`,
+`solver.steps.warm`, `sparse.fill`, `serve.batch_rows`,
+`serve.slo.<model>`). `snapshot()` returns a plain-JSON dict keyed by
+those names (histograms summarize to count/mean/percentiles).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins sample (queue depths, resident models)."""
+    """Last-write-wins sample (fill ratios, queue depths, memory bytes)."""
 
     __slots__ = ("name", "_value", "_lock")
 
@@ -329,3 +330,49 @@ def latency_summary(latencies_s, wall_s: float | None = None) -> dict:
         "p99_interpolated": bool(lats.size < 100),
         "qps": float(lats.size / wall_s) if wall_s else float("nan"),
     }
+
+
+def record_solver_step(*, mode: str, iters_per_rhs, drift: float,
+                       seconds: float, launches: int | None = None,
+                       hbm_bytes: float | None = None,
+                       phase_ms: dict | None = None,
+                       reg: MetricsRegistry | None = None) -> dict:
+    """Record one MLL solver step into the registry and return its telemetry
+    record (a `GPFitResult.telemetry` entry), as the reference's.
+
+    iters_per_rhs: the per-column iteration counts of the solve (already on
+    the host). launches / hbm_bytes: the cost model's price of the step.
+    phase_ms: measured wall ms per phase of the phased dispatch
+    (`{"precond_build": .., "cg_solve": .., ...}`); lands in the
+    `phase.<name>_ms` histograms and the record, the measured half that
+    `obs_report --compare-model` sets against the byte model.
+    """
+    r = reg if reg is not None else _REGISTRY
+    iters = np.asarray(iters_per_rhs).ravel()
+    total = int(iters.sum())
+    r.counter(f"solver.steps.{mode}").inc()
+    r.counter("cg.iters").inc(total)
+    h = r.histogram("cg.iters_per_rhs")
+    for it in iters:
+        h.observe(int(it))
+    r.histogram("solver.step_seconds").observe(seconds)
+    entry = {
+        "mode": mode,
+        "refreshed": mode != "warm",
+        "cg_iters": total,
+        "cg_iters_per_rhs": [int(i) for i in iters],
+        "drift": drift,
+        "seconds": seconds,
+    }
+    if launches is not None:
+        r.counter("mvm.matmat_launches").inc(int(launches))
+        entry["mvm_launches"] = int(launches)
+    if hbm_bytes is not None:
+        r.counter("mvm.hbm_bytes_modeled").inc(float(hbm_bytes))
+        entry["hbm_bytes_modeled"] = float(hbm_bytes)
+    if phase_ms is not None:
+        for phase, ms in phase_ms.items():
+            r.histogram(f"phase.{phase}_ms").observe(float(ms))
+        entry["measured_phase_ms"] = {k: float(v)
+                                      for k, v in phase_ms.items()}
+    return entry

@@ -129,6 +129,14 @@ def instant(name: str, **attrs: Any) -> None:
            "pid": os.getpid(), "tid": threading.get_ident(), "args": attrs})
 
 
+def counter_event(name: str, **values: float) -> None:
+    """A Chrome counter ("C") sample, e.g. device memory at a boundary."""
+    if not _STATE.enabled:
+        return
+    _emit({"name": name, "ph": "C", "ts": _now_us(), "pid": os.getpid(),
+           "args": values})
+
+
 def complete_event(name: str, ts_us: float, dur_us: float,
                    tid: int | str | None = None, **attrs: Any) -> None:
     """Emit a complete ("X") event from recorded timestamps, on `tid` (a
@@ -148,6 +156,21 @@ _REQUEST_IDS = itertools.count(1)
 def next_request_id() -> str:
     """A process-unique serve request ID ("r1", "r2", ...)."""
     return f"r{next(_REQUEST_IDS)}"
+
+
+def maybe_wrap(name: str, fn):
+    """Span-wrap `fn`; `fn` itself when tracing is off at wrap time, so an
+    instrumented call site costs nothing by default."""
+    if not _STATE.enabled:
+        return fn
+
+    def wrapped(*a, **kw):
+        with span(name):
+            return fn(*a, **kw)
+
+    wrapped.__name__ = getattr(fn, "__name__", name)
+    wrapped.__wrapped__ = fn
+    return wrapped
 
 
 def enable_tracing(path: str | None = None) -> None:

@@ -15,9 +15,11 @@ operator's runtime tile pruning bites; results return in request order.
 from __future__ import annotations
 
 import threading
+import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.operators import make_operator
 from repro_torch.core.partitioned import map_row_chunks
 from repro_torch.core.predcache import predict_mean, predict_var_cached
@@ -87,24 +89,34 @@ class PredictionEngine:
             torch.cuda.synchronize(self.op.device)
 
     def predict(self, Xstar) -> tuple[torch.Tensor, torch.Tensor]:
-        """(mean, var) for (m, d) query points; any m, one chunk shape."""
-        Xstar = torch.as_tensor(Xstar, device=self.op.device).to(self.op.dtype)
-        if Xstar.ndim == 1:
-            Xstar = Xstar[None, :]
-        m = Xstar.shape[0]
-        inv = None
-        if self.sort_queries and m > 1:
-            # the order comes from the host (a few query rows); the inverse
-            # permutation is a scatter on the device
-            order = torch.as_tensor(morton_order(Xstar.cpu().numpy()),
-                                    device=Xstar.device).long()
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(m, device=Xstar.device)
-            Xstar = Xstar[order]
-        out = map_row_chunks(self._predict_chunk, Xstar, self.chunk_size)
-        if inv is not None:
-            out = tuple(a[inv] for a in out)
+        """(mean, var) for (m, d) query points; any m, one chunk shape.
+        Under tracing a `serve_predict` span covers the call (synchronized
+        on the card); the `serve.predict_ms` / `serve.predict_rows`
+        histograms record every call."""
+        t0 = time.perf_counter()
+        with obs.span("serve_predict"):
+            Xstar = torch.as_tensor(Xstar, device=self.op.device).to(self.op.dtype)
+            if Xstar.ndim == 1:
+                Xstar = Xstar[None, :]
+            m = Xstar.shape[0]
+            inv = None
+            if self.sort_queries and m > 1:
+                # the order comes from the host (a few query rows); the
+                # inverse permutation is a scatter on the device
+                order = torch.as_tensor(morton_order(Xstar.cpu().numpy()),
+                                        device=Xstar.device).long()
+                inv = torch.empty_like(order)
+                inv[order] = torch.arange(m, device=Xstar.device)
+                Xstar = Xstar[order]
+            out = map_row_chunks(self._predict_chunk, Xstar, self.chunk_size)
+            if inv is not None:
+                out = tuple(a[inv] for a in out)
+            if obs.tracing_enabled() and self.op.device.type == "cuda":
+                torch.cuda.synchronize(self.op.device)
         with self._counter_lock:
             self.chunks_run += -(-max(m, 1) // self.chunk_size)
             self.rows_served += m
+        obs.histogram("serve.predict_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+        obs.histogram("serve.predict_rows").observe(m)
         return out

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kernels_math import (
     TAPER_KINDS,
     canonicalize_kernel,
@@ -360,7 +361,7 @@ def build_plan(kernel, X, params, *, tile: int = 256, margin: float = 0.1,
     row_cols[pair_rows, slot] = pair_cols
     row_valid[pair_rows, slot] = True
 
-    return SparsePlan(
+    plan = SparsePlan(
         n=n, d=d, tile=tile, perm=perm, inv_perm=inv_perm,
         box_lo=np.asarray(box_lo, np.float32),
         box_hi=np.asarray(box_hi, np.float32),
@@ -368,6 +369,14 @@ def build_plan(kernel, X, params, *, tile: int = 256, margin: float = 0.1,
         row_cols=row_cols, row_valid=row_valid,
         support=support, support_planned=support_planned, margin=margin,
         params_ref=params_ref)
+    # the sparse backend's MVM cost is its fill ratio: surface it beside the
+    # solver counters, as the reference does
+    obs.counter("sparse.plans_built").inc()
+    obs.gauge("sparse.fill").set(plan.fill)
+    obs.gauge("sparse.active_pairs").set(plan.num_pairs)
+    obs.instant("sparse_plan", n=plan.n, tile=plan.tile,
+                pairs=plan.num_pairs, fill=plan.fill)
+    return plan
 
 
 class ChunkSlicedPlan(NamedTuple):

@@ -74,8 +74,10 @@ class GPFitResult(NamedTuple):
     params: GPParams
     loss_trace: list
     seconds: float
-    # per-step solver telemetry of the full-data stage (dicts: mode,
-    # refreshed, cg_iters, iters_per_rhs, drift, seconds)
+    # per-step solver telemetry of the full-data stage: the records of
+    # `obs.record_solver_step` (mode, refreshed, cg_iters, cg_iters_per_rhs,
+    # drift, seconds, mvm_launches, hbm_bytes_modeled; measured_phase_ms
+    # under tracing)
     telemetry: tuple = ()
     # blocksparse replans of the full-data stage: (step, drift, fill)
     replans: tuple = ()
@@ -93,6 +95,12 @@ def _draw_seed(generator: torch.Generator) -> int:
     """A seed drawn from `generator`'s stream."""
     return int(torch.randint(0, 2**62, (1,), generator=generator,
                              device=generator.device))
+
+
+def _fence(dev: torch.device) -> None:
+    """Under tracing, wait for the card so a span ends with its work."""
+    if obs.tracing_enabled() and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _start_params(params0, init, dev):
@@ -115,9 +123,28 @@ def fit_exact_gp(gp: ExactGP, X, y, *, cfg: GPTrainConfig = GPTrainConfig(),
     `cfg.seed`). device: where the fit runs (None = the card; raises when
     there is none). save_artifact: after fitting, run the one-time
     precomputation and save a `repro_torch.serve` PosteriorArtifact there.
+
+    Observability, as the reference's: under `obs.trace_session` (or
+    REPRO_TORCH_OBS_TRACE) the fit emits a `fit_exact_gp` root span with a
+    span per stage (`pretrain_lbfgs`, `pretrain_adam`, `sparse_plan`,
+    `autotune`, `sparse_replan`, `optimizer_step`, `save_artifact`) and,
+    inside the full-data steps, the engine's `mll_step` and phase spans;
+    with profiling on, `memory_snapshot` at the stage bounds and a
+    `step_annotation` around each full-data step. All of it is a no-op by
+    default.
     """
-    t0 = time.time()
     dev = resolve_device(device)
+    with obs.span("fit_exact_gp", method=method, n=int(X.shape[0]),
+                  backend=gp.config.backend):
+        return _fit_exact_gp(gp, X, y, cfg=cfg, method=method,
+                             noise_init=noise_init, verbose=verbose,
+                             save_artifact=save_artifact, params0=params0,
+                             generator=generator, dev=dev)
+
+
+def _fit_exact_gp(gp, X, y, *, cfg, method, noise_init, verbose,
+                  save_artifact, params0, generator, dev) -> GPFitResult:
+    t0 = time.time()
     gp = ExactGP(gp.config, device=dev)
     X = torch.as_tensor(X, device=dev)
     y = torch.as_tensor(y, device=dev)
@@ -158,7 +185,9 @@ def fit_exact_gp(gp: ExactGP, X, y, *, cfg: GPTrainConfig = GPTrainConfig(),
     def run_full_data_stage(steps, lr, params, tag):
         from repro_torch.sparse import build_plan, needs_replan
 
-        gp_s = stage_gp(params)
+        obs.memory_snapshot(f"{tag}_start")
+        with obs.span("sparse_plan", stage=tag):
+            gp_s = stage_gp(params)
         if gp_s.config.backend == "pallas" and gp_s.config.autotune:
             # resolve (and persist) the training shape's column split before
             # the first step, so that the sweep's time lands here
@@ -180,9 +209,13 @@ def fit_exact_gp(gp: ExactGP, X, y, *, cfg: GPTrainConfig = GPTrainConfig(),
                     kernel=gp_s.config.kernel)
                 if replan:
                     telem.extend(engine.telemetry)
-                    plan = build_plan(gp_s.config.kernel, X, params,
-                                      tile=gp_s.config.plan.tile,
-                                      margin=cfg.drift_threshold)
+                    fill_before = gp_s.config.plan.fill
+                    with obs.span("sparse_replan", stage=tag, step=i):
+                        plan = build_plan(gp_s.config.kernel, X, params,
+                                          tile=gp_s.config.plan.tile,
+                                          margin=cfg.drift_threshold)
+                    obs.health.sparse_replan(step=i, fill_before=fill_before,
+                                             fill_after=plan.fill)
                     replans.append((i, drift, plan.fill))
                     gp_s = gp_s.replace(plan=plan)
                     engine = WarmStartEngine(gp_s.config.mll_config(),
@@ -190,14 +223,18 @@ def fit_exact_gp(gp: ExactGP, X, y, *, cfg: GPTrainConfig = GPTrainConfig(),
                     if verbose:
                         print(f"  {tag} {i}: replanned sparsity "
                               f"(drift={drift:.3f}, fill={plan.fill:.3f})")
-            val, _, g = engine.step(X, y, params, generator)
-            params, state = adam_update(params, g, state, lr)
+            with obs.step_annotation(i):
+                val, _, g = engine.step(X, y, params, generator)
+                with obs.span("optimizer_step", stage=tag, step=i):
+                    params, state = adam_update(params, g, state, lr)
+                    _fence(dev)
             trace.append(float(val))
             if verbose and (steps <= 10 or i % 10 == 0):
                 t = engine.telemetry[-1]
                 print(f"  {tag} {i}: {float(val):.5f} [{t['mode']} "
                       f"cg_iters={t['cg_iters']} dt={t['seconds']:.2f}s]")
         telem.extend(engine.telemetry)
+        obs.memory_snapshot(f"{tag}_end")
         return params, tuple(telem)
 
     if method == "pretrain":
@@ -212,18 +249,24 @@ def fit_exact_gp(gp: ExactGP, X, y, *, cfg: GPTrainConfig = GPTrainConfig(),
             gen = torch.Generator(device=dev).manual_seed(seed_lbfgs)
             return gp_sub.loss(Xs, ys, p, gen)[0]
 
-        params, tr = lbfgs_minimize(loss_lbfgs, params,
-                                    max_steps=cfg.pretrain_lbfgs_steps,
-                                    verbose=verbose)
+        with obs.span("pretrain_lbfgs", subset=int(m)):
+            params, tr = lbfgs_minimize(loss_lbfgs, params,
+                                        max_steps=cfg.pretrain_lbfgs_steps,
+                                        verbose=verbose)
+            _fence(dev)
         trace += tr
         state = adam_init(params)
-        for i in range(cfg.pretrain_adam_steps):
-            val, g = _value_and_grad(
-                lambda p: gp_sub.loss(Xs, ys, p, generator)[0], params)
-            params, state = adam_update(params, g, state, cfg.pretrain_adam_lr)
-            trace.append(float(val))
-            if verbose:
-                print(f"  pretrain adam {i}: {float(val):.5f}")
+        with obs.span("pretrain_adam", subset=int(m)):
+            for i in range(cfg.pretrain_adam_steps):
+                val, g = _value_and_grad(
+                    lambda p: gp_sub.loss(Xs, ys, p, generator)[0], params)
+                params, state = adam_update(params, g, state,
+                                            cfg.pretrain_adam_lr)
+                trace.append(float(val))
+                if verbose:
+                    print(f"  pretrain adam {i}: {float(val):.5f}")
+            _fence(dev)
+        obs.memory_snapshot("pretrain_end")
         params, telemetry = run_full_data_stage(
             cfg.finetune_adam_steps, cfg.finetune_adam_lr, params, "finetune")
     elif method == "adam":
@@ -239,11 +282,12 @@ def fit_exact_gp(gp: ExactGP, X, y, *, cfg: GPTrainConfig = GPTrainConfig(),
         c = gp.config
         # blocksparse: the posterior runs on a plan at the FINAL params
         gp_art = gp.replace(plan=None) if blocksparse else gp
-        art = fit_posterior(
-            gp_art.operator(X, params), y, generator=generator,
-            precond_rank=c.precond_rank, lanczos_rank=c.lanczos_rank,
-            pred_tol=c.pred_cg_tol, max_cg_iters=c.pred_max_cg_iters)
-        path = _save(save_artifact, art)
+        with obs.span("save_artifact"):
+            art = fit_posterior(
+                gp_art.operator(X, params), y, generator=generator,
+                precond_rank=c.precond_rank, lanczos_rank=c.lanczos_rank,
+                pred_tol=c.pred_cg_tol, max_cg_iters=c.pred_max_cg_iters)
+            path = _save(save_artifact, art)
         if verbose:
             print(f"  saved posterior artifact: {path} "
                   f"(rel_residual={art.meta['solve_rel_residual']:.2e})")

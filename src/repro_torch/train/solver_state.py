@@ -19,25 +19,38 @@ current).
 Two engines share the schedule and the telemetry (`_WarmEngineBase`):
 `WarmStartEngine` on one device and `DistWarmStartEngine` over the sharded
 operator of `repro_torch.core.distributed`, run on every rank in step.
+Each step opens an `mll_step` span and appends the reference's telemetry
+record (`obs.record_solver_step`: mode, refreshed, cg_iters,
+cg_iters_per_rhs, drift, seconds, and the cost model's mvm_launches and
+hbm_bytes_modeled); the health sentinels (`obs.health`) run on its aux.
+Under tracing `WarmStartEngine` wraps each of its four pieces,
+precond_build, cg_solve, slq_logdet and eq2_backward, in a span closed by a
+fence, each span carrying its measured ms and its modeled bytes and
+launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.mll import (
-    MLLAux,
     MLLConfig,
     operator_mll_backward,
-    operator_mll_forward,
+    operator_mll_logdet,
+    operator_mll_solve,
+    operator_mll_value,
 )
 from repro_torch.core.operators import make_operator
 from repro_torch.core.pcg import SolveState
 from repro_torch.core.pivchol import extend_preconditioner
+from repro_torch.kernels.kmvm import ROW_TILE
+from repro_torch.obs import health as obs_health
 
 
 class WarmStartConfig(NamedTuple):
@@ -103,32 +116,102 @@ def param_drift(ref, params) -> float:
     return drift
 
 
+def _fence(device: torch.device) -> None:
+    """Wait for the device's queued work (the phase spans' fence)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+_UNTRACED = contextlib.nullcontext()
+
+
+class _Phases:
+    """The phase spans of one `WarmStartEngine` step. Under tracing each
+    phase is a span closed by a fence (`torch.cuda.synchronize` on the
+    card) and stamped with its measured ms, the backend and its modeled
+    bytes and launches (`obs.mll_phase_costs` at the port's geometry);
+    otherwise each phase is a null context. The dispatch sets `res` once
+    the solve has run: the later phases' price depends on its MVMs."""
+
+    def __init__(self, engine, mode, X):
+        self.traced = obs.tracing_enabled()
+        self.engine, self.mode, self.X = engine, mode, X
+        self.res = None
+        self.ms: dict[str, float] = {}
+
+    def __call__(self, phase):
+        return self._span(phase) if self.traced else _UNTRACED
+
+    @contextlib.contextmanager
+    def _span(self, phase):
+        with obs.span(phase, mode=self.mode) as sp:
+            t = time.perf_counter()
+            yield
+            _fence(self.X.device)
+            ms = self.ms[phase] = (time.perf_counter() - t) * 1e3
+            eng, res = self.engine, self.res
+            # (the preconditioner's price does not depend on the MVMs)
+            cost = obs.mll_phase_costs(
+                **eng._cost_args(self.mode, self.X,
+                                 0 if res is None else res.loop_mvms),
+                precond_rank=(eng.cfg.precond_rank if self.mode != "warm"
+                              else 0))[phase]
+            sp.set(measured_ms=ms, backend=eng.cfg.backend,
+                   modeled_hbm_bytes=cost.hbm_bytes,
+                   modeled_launches=cost.launches)
+            if phase == "cg_solve":
+                sp.set(cg_iters=int(res.iterations.sum()))
+
+
 class _WarmEngineBase:
     """The refresh schedule, state bookkeeping and per-step telemetry shared
     by both engines. Subclasses provide `_dispatch(mode, X, y, params,
     generator, probes)` returning (loss, MLLAux, g_params, new_state).
 
-    step() returns (loss, aux, g_params) with loss = -mll/n and appends a
-    telemetry record (mode "cold" | "refresh" | "warm", refreshed, cg_iters,
-    iters_per_rhs, drift, seconds) to `telemetry`. A disabled engine runs
-    every step cold.
+    step() returns (loss, aux, g_params) with loss = -mll/n and appends the
+    step's `obs.record_solver_step` record to `telemetry`. A disabled
+    engine runs every step cold. track_residuals (None = whether the
+    health sink is on at construction) asks PCG for the per-iteration
+    residuals the stagnation and divergence sentinels read.
     """
 
-    def __init__(self, warm: WarmStartConfig | None = None):
+    def __init__(self, warm: WarmStartConfig | None = None,
+                 track_residuals: bool | None = None):
         self.warm = warm or WarmStartConfig()
         self.state = None
         self.telemetry: list[dict] = []
         self._params_ref = None
         self._steps_since_refresh = 0
+        if track_residuals is None:
+            track_residuals = obs_health.health_enabled()
+        self.track_residuals = bool(track_residuals)
+        self._last_phase_ms: dict | None = None
 
     def _dispatch(self, mode, X, y, params, generator, probes):
         raise NotImplementedError
+
+    def _cost_args(self, mode, X, loop_mvms: int) -> dict:
+        """The cost model's arguments for this step: the port's geometry
+        (the fused kernels' 64-row tile) and the MVMs the solve's loop ran
+        (`PCGResult.loop_mvms`)."""
+        cfg = self.cfg
+        plan = getattr(cfg, "plan", None)
+        return dict(
+            n=int(X.shape[0]), d=int(X.shape[-1]),
+            num_rhs=1 + int(cfg.num_probes),
+            max_cg_iters=int(loop_mvms),
+            backend=getattr(cfg, "backend", "partitioned"),
+            row_block=int(getattr(cfg, "row_block", 1024)), bm=ROW_TILE,
+            fill=float(plan.fill) if plan is not None else 1.0,
+            warm_init=mode != "cold")
 
     def _mode(self, params) -> tuple[str, float]:
         if self.state is None or not self.warm.enabled:
             return "cold", 0.0
         drift = param_drift(self._params_ref, params)
         if drift > self.warm.drift_threshold:
+            obs_health.precond_stale(step=len(self.telemetry), drift=drift,
+                                     threshold=self.warm.drift_threshold)
             return "refresh", drift
         if self._steps_since_refresh >= self.warm.refresh_every:
             return "refresh", drift
@@ -141,19 +224,32 @@ class _WarmEngineBase:
         `generator`); warm steps reuse the carried block."""
         t0 = time.perf_counter()
         mode, drift = self._mode(params)
-        loss, aux, g_params, state = self._dispatch(
-            mode, X, y, params, generator, None if mode == "warm" else probes)
-        iters = aux.cg_iterations.cpu().numpy()
+        probes = None if mode == "warm" else probes
+        with obs.span("mll_step", mode=mode, drift=float(drift)) as sp:
+            loss, aux, g_params, state = self._dispatch(
+                mode, X, y, params, generator, probes)
+            iters = aux.cg_iterations.cpu().numpy()
+            sp.set(cg_iters=int(iters.sum()))
+        cfg = self.cfg
+        obs_health.check_solver_step(
+            step=len(self.telemetry), mode=mode, tol=float(cfg.cg_tol),
+            max_iters=int(cfg.max_cg_iters), iters_per_rhs=iters,
+            rel_residual=aux.rel_residual.cpu().numpy(),
+            residuals=(None if aux.residuals is None
+                       else aux.residuals.cpu().numpy()),
+            drift=drift)
         if self.warm.enabled:
             self.state = state
             if mode != "warm":
                 self._params_ref = params
                 self._steps_since_refresh = 0
             self._steps_since_refresh += 1
-        self.telemetry.append({
-            "mode": mode, "refreshed": mode != "warm",
-            "cg_iters": int(iters.sum()), "iters_per_rhs": iters.tolist(),
-            "drift": float(drift), "seconds": time.perf_counter() - t0})
+        cost = obs.mll_step_cost(**self._cost_args(mode, X, aux.cg_mvms))
+        phase_ms, self._last_phase_ms = self._last_phase_ms, None
+        self.telemetry.append(obs.record_solver_step(
+            mode=mode, iters_per_rhs=iters, drift=float(drift),
+            seconds=time.perf_counter() - t0, launches=cost.launches,
+            hbm_bytes=cost.hbm_bytes, phase_ms=phase_ms))
         return loss, aux, g_params
 
     def extend_rows(self, m: int) -> None:
@@ -187,40 +283,57 @@ class WarmStartEngine(_WarmEngineBase):
     """Stateful MLL value + gradient engine on one device; the gradients are
     assembled by `operator_mll_backward`."""
 
-    def __init__(self, cfg: MLLConfig, warm: WarmStartConfig | None = None):
-        super().__init__(warm)
+    def __init__(self, cfg: MLLConfig, warm: WarmStartConfig | None = None,
+                 track_residuals: bool | None = None):
+        super().__init__(warm, track_residuals)
         self.cfg = cfg
 
     def _dispatch(self, mode, X, y, params, generator, probes):
-        cfg = self.cfg
-        op = make_operator(cfg.operator_config(), X, params, device=X.device)
+        """The step's pieces in order, each in its phase (`_Phases`):
+        operator and preconditioner, the mBCG solve, the SLQ
+        log-determinant (warm steps carry the last refresh's), then the
+        Eq. 2 backward."""
+        cfg, state = self.cfg, self.state
         n = X.shape[0]
-        state = self.state
-        if mode == "warm":
-            precond = op.preconditioner(cfg.precond_rank, reuse=state.precond)
-            probes, x0 = state.solve.probes, state.solve.solutions
-            logdet_carry = state.logdet
-            min_iters = self.warm.warm_min_iters
-        else:
-            precond = op.preconditioner(cfg.precond_rank)
-            logdet_carry = None
-            min_iters = cfg.min_cg_iters
-            if mode == "refresh":
-                # fresh probes invalidate the probe solutions; the y column
-                # still warm-starts
-                x0 = torch.cat([state.solve.solutions[:, :1],
-                                torch.zeros((n, cfg.num_probes), dtype=y.dtype,
-                                            device=y.device)], dim=1)
+        phase = _Phases(self, mode, X)
+        with phase("precond_build"):
+            op = make_operator(cfg.operator_config(), X, params,
+                               device=X.device)
+            precond = op.preconditioner(
+                cfg.precond_rank,
+                reuse=state.precond if mode == "warm" else None)
+        with phase("cg_solve"):
+            if mode == "warm":
+                probes, x0 = state.solve.probes, state.solve.solutions
+                logdet_carry = state.logdet
+                min_iters = self.warm.warm_min_iters
             else:
-                x0 = None
-        (value, aux), (_, u_y, U, pinv_z), solve = operator_mll_forward(
-            op, y, generator, precond_rank=cfg.precond_rank,
-            num_probes=cfg.num_probes, max_cg_iters=cfg.max_cg_iters,
-            min_cg_iters=min_iters, cg_tol=cfg.cg_tol,
-            pcg_method=cfg.pcg_method, precond=precond, probes=probes, x0=x0,
-            logdet_carry=logdet_carry)
-        _, _, g_params = operator_mll_backward(
-            cfg, X, op.params, u_y, U, pinv_z, -1.0 / n)
+                logdet_carry = None
+                min_iters = cfg.min_cg_iters
+                if mode == "refresh":
+                    # fresh probes invalidate the probe solutions; the y
+                    # column still warm-starts
+                    x0 = torch.cat([state.solve.solutions[:, :1],
+                                    torch.zeros((n, cfg.num_probes),
+                                                dtype=y.dtype,
+                                                device=y.device)], dim=1)
+                else:
+                    x0 = None
+            solved = operator_mll_solve(
+                op, y, generator, precond=precond, num_probes=cfg.num_probes,
+                max_cg_iters=cfg.max_cg_iters, min_cg_iters=min_iters,
+                cg_tol=cfg.cg_tol, pcg_method=cfg.pcg_method, probes=probes,
+                x0=x0, track_residuals=self.track_residuals)
+            phase.res = solved[2]
+        with phase("slq_logdet"):
+            logdet = operator_mll_logdet(precond, phase.res) \
+                if logdet_carry is None else logdet_carry
+        (value, aux), (_, u_y, U, pinv_z), solve = operator_mll_value(
+            n, solved, logdet)
+        with phase("eq2_backward"):
+            _, _, g_params = operator_mll_backward(
+                cfg, X, op.params, u_y, U, pinv_z, -1.0 / n)
+        self._last_phase_ms = phase.ms or None
         new_state = SolverState(solve=solve, precond=precond,
                                 logdet=aux.logdet)
         return -value / n, aux, g_params, new_state
@@ -231,15 +344,14 @@ class DistWarmStartEngine(_WarmEngineBase):
 
     Wraps `repro_torch.core.distributed.make_warm_mll_step`; X is the full
     padded array and y this rank's chunk (`replicate` / `shard_vector`),
-    `probes` this rank's probe chunk; the state is a `DistSolveState`, and
-    the (logdet, quad, cg_iterations, rel_residual) aux of the distributed
-    MLL is repacked into MLLAux.
+    `probes` this rank's probe chunk; the state is a `DistSolveState`.
     """
 
     def __init__(self, mesh, geom, cfg, warm: WarmStartConfig | None = None):
         from repro_torch.core.distributed import make_warm_mll_step, replicate
 
-        super().__init__(warm)
+        # the distributed step returns no residual trajectories
+        super().__init__(warm, track_residuals=False)
         self.mesh = mesh
         self.geom = geom
         self.cfg = cfg
@@ -250,13 +362,8 @@ class DistWarmStartEngine(_WarmEngineBase):
     def _dispatch(self, mode, X, y, params, generator, probes):
         params_r = self._replicate(self.mesh, params)
         if mode == "cold":
-            out = self._fns.cold(X, y, params_r, generator, probes)
-        elif mode == "refresh":
-            out = self._fns.refresh(X, y, params_r, generator, self.state,
-                                    probes)
-        else:
-            out = self._fns.warm(X, y, params_r, generator, self.state)
-        loss, aux_t, g_params, state = out
-        aux = MLLAux(logdet=aux_t[0], quad=aux_t[1], cg_iterations=aux_t[2],
-                     rel_residual=aux_t[3])
-        return loss, aux, g_params, state
+            return self._fns.cold(X, y, params_r, generator, probes)
+        if mode == "refresh":
+            return self._fns.refresh(X, y, params_r, generator, self.state,
+                                     probes)
+        return self._fns.warm(X, y, params_r, generator, self.state)

@@ -201,3 +201,22 @@ def launcher(rank, p):
     return {"losses": report["losses"], "n": report["n"],
             "n_padded": report["geom"].n_padded,
             "modes": [t["mode"] for t in report["telemetry"]]}
+
+
+def obs_microbench(rank, p):
+    """`obs.measure.collective_microbench` on a 2 x 1 mesh (the ring hop),
+    a 1 x 2 mesh (the reduce-scatter) and the mesh it builds itself."""
+    from repro_torch.core.distributed import make_geometry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs.measure import collective_microbench
+
+    out = {}
+    for key, shape, axes, mode in (("ring", (2,), ("data",), "1d"),
+                                   ("scatter", (1, 2), ("data", "model"), "2d")):
+        mesh = make_mesh(shape, axes, device="cpu")
+        geom = make_geometry(mesh, p["n"], 3, mode=mode)
+        rows = collective_microbench(mesh, geom, num_rhs=p["t"], reps=3)
+        out[key] = (rows, {"n": geom.n, "d_row": geom.d_row,
+                           "d_col": geom.d_col, "n_local": geom.n_local})
+    out["auto"] = [r["collective"] for r in collective_microbench(reps=2)]
+    return out

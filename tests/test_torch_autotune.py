@@ -17,6 +17,7 @@ row-count and B2 == B1 pins at the tuned split, need the card:
 tests/test_torch_gpu.py.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import inspect
 import json
 import os

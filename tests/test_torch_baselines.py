@@ -12,6 +12,7 @@ parity with the reference on the same numpy params.
   loss traces within 1e-8 (fp64; the same Adam, the same minibatches).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

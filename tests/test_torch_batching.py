@@ -10,6 +10,7 @@ kernel launch counters under concurrent increments. Every future wait has
 a timeout and every batcher is closed in a `with` or `finally`.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor

@@ -5,6 +5,7 @@ save-every-k / resume, and both packages reading each other's files: an
 `SVGPParams` tree written by the port's manager loads bit for bit through
 the reference's `load_checkpoint`, and the other way round."""
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import os
 
 import jax

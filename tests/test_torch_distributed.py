@@ -21,6 +21,7 @@ the geometry, `chunk_sliced_plan`, `validate_dist_plan`,
 launcher runs on a world of 1 (its CLI, a subprocess) and of 2.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import functools
 import os
 import pathlib

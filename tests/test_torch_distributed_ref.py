@@ -11,6 +11,7 @@ tests/test_distributed_2d.py are not used: that test already fails on this
 tree.)
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import os
 import pathlib
 import subprocess

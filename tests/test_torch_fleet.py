@@ -11,6 +11,7 @@ Every future wait has a timeout and every fleet is closed in a `with` or
 a `finally`.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of `repro`, and no silent CPU.
 
-* No file under src/repro_torch/, and not chip_smoke.py, imports `jax` or
+* No file under src/repro_torch/ (the obs modules and the obs_report /
+  obs_diff launchers among them), and not chip_smoke.py, imports `jax` or
   `repro` (an AST scan).
 * With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
 * Entry points with no `device` raise when there is no card, rather than
@@ -13,6 +14,7 @@
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import ast
 import json
 import pathlib
@@ -61,6 +63,9 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch.train.gp_trainer, repro_torch.sparse\n"
         "import repro_torch.core.distributed, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.obs\n"
+        "import repro_torch.launch.obs_report, repro_torch.launch.obs_diff\n"
+        "from repro_torch.obs import costmodel, health, measure, profiling\n"
+        "from repro_torch.obs import regress, report\n"
         "import repro_torch.core.sgpr, repro_torch.core.svgp\n"
         "import repro_torch.kernels.autotune, repro_torch.train.checkpoint\n"
         "from repro_torch.train import CheckpointManager, fit_sgpr, fit_svgp\n"

@@ -5,6 +5,7 @@ at the conformance sizes (`tests/test_conformance.py`: SHAPES, KERNELS,
 VAL_TOL/MAT_TOL).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 
 import jax

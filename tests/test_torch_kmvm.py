@@ -8,6 +8,7 @@ kernels themselves are held to the plain versions on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

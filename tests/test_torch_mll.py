@@ -14,6 +14,7 @@ dtype (as the reference's Pallas path does), so it is held to the fp32
 tolerances, against the reference's Pallas path (interpret mode).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import functools
 
 import jax

@@ -4,6 +4,7 @@ decimation), `SLOTracker` summaries with and without a target, and the
 registry. Both are host-side numpy code, so the results must be equal.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import math
 
 import numpy as np

@@ -6,6 +6,7 @@ The fused backend's contract is fp32 math at every operand dtype, so its
 rows are held to fp32 tolerances even on fp64, as in the reference.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

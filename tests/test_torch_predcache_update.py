@@ -13,6 +13,7 @@ float32 it is held at 2e-3 of its largest entry, as
 float32 solve, because CG amplifies summation-order differences.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the launcher's continuous fleet path runs to its end and reports both
 models and the update.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import os
 import pathlib
 import subprocess

@@ -5,6 +5,7 @@ and alpha/beta line up step for step; Lanczos gets the same numpy start
 vector on both sides.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

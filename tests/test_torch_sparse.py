@@ -13,6 +13,7 @@ largest entry for X gradients (fp32 summation-order noise on sums of
 cancelling terms).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ operator's matvec against `repro.sparse`'s operator on the same numpy
 inputs, 2e-4 of the largest entry (the conformance tolerance for fp32).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

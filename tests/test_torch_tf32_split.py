@@ -21,6 +21,7 @@ K @ V. None of this needs a card; the kernels themselves are held to their
 plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

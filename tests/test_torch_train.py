@@ -11,6 +11,7 @@ fp32 losses); the fit 0.02 on constrained hyperparameters (stated at the
 test: the packages draw different probes).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import math
 
 import jax
