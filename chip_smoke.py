@@ -181,7 +181,33 @@ caught and skipped):
    ring chunk) against the single-device blocksparse MLL on the spatial
    field at n = 2^13, same injected probes and preconditioner, within the
    conformance tolerances (as phase 7).
-11. The phases' seconds beside the card's name and power limit (again, so
+11. Deep kernel learning (`repro_torch.core.dkl` over `repro_torch.models`):
+   smollm-360m at its published width (32 layers, d 960, 15 heads on 5 KV
+   heads, ff 2560, vocab 49152; fp32 weights from a seeded generator) under
+   an exact-GP head, matern32 on the `pallas` backend (precond rank 20, <= 30
+   training CG iterations, from noise 0.2 and the initial features' median
+   pairwise distance as the lengthscale, so K is far from the identity). Data: 2048 training and 1024
+   held-out sequences of 64 seeded random tokens, the reference example's
+   target sin(mean(tokens[:, ::4]) / 8) + 0.05 noise. Three Adam steps
+   (lr 3e-3) over the backbone and the GP's hyperparameters, each on
+   `DKLModel.loss` (the backward through the MLL's Eq. 2 gradient with
+   respect to the pooled features, then through the backbone with
+   per-block checkpointing); then `precompute` and `predict` on the
+   held-out sequences. B1 and B2's counts are set to 0 just before and read
+   just after. Printed: the step seconds and loss trace, the launches, peak
+   memory, the embedding's largest move and step 0's largest gradient of
+   it, train and test RMSE. Gates: every loss finite; B1 and B2 launched;
+   the embedding moved by at least lr / 2 (the gradient through the MLL's
+   g_X cleared Adam's eps); predictions finite, variances > 0; the pooled
+   features of 4 held-out sequences on the card within 2e-4 of max|f| of
+   the same backbone's on the CPU; at the trained features (2048 x 2048,
+   d 960, t 1 and 9; operands as the `pallas` operator passes them) the
+   off-diagonal part of K @ V at least 10x the tolerance, and B1 and B2
+   within 2e-4 of max|out| of their plain versions, then timed beside them
+   and their bounds. Printed, not gated: B1 and the plain version against
+   an fp64 evaluation, and the same at the default lengthscale, where K is
+   the identity (ROADMAP C3).
+12. The phases' seconds beside the card's name and power limit (again, so
    the end of the output holds them), the `kernels` JSON line, then the
    last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -201,6 +227,7 @@ the bytes at 3.35 TB/s.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -225,6 +252,12 @@ DIST_GP_N = 98304          # n_train = 4/9 of 3 * DIST_GP_N = 2^17
 DIST_STEPS = 3
 RING_STEP = 1 << 17        # rows = chunk of one ring step, 8 cards at 2^20
 DIST_N = 1 << 17           # rows of the distributed path's single-card pass
+DKL_ARCH = "smollm-360m"   # phase 11's backbone, at its published width
+DKL_N = 2048               # training sequences
+DKL_TEST = 1024            # held-out sequences
+DKL_SEQ = 64               # tokens per sequence
+DKL_STEPS = 3
+DKL_LR = 3e-3              # Adam's, over the backbone and the GP head
 DEV = "cuda"
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_SPLIT_FLOPS = 495e12 / 3   # 3xTF32: three TF32 products per product
@@ -1901,6 +1934,213 @@ def phase_dist_crosscheck(X, y) -> dict:
     return {"value_diff": dv, "grad_worst": worst, "b4_launches": b4}
 
 
+def _kmvm_fp64(components, scalars, X, V):
+    """K(X, X) @ V in fp64, d2 as squared differences (no cancellation)."""
+    from repro_torch.kernels import kmvm
+
+    x = X.to(torch.float64)
+    d2 = torch.cdist(x, x, compute_mode="donot_use_mm_for_euclid_dist").square()
+    return (kmvm._epilogue(components, scalars.to(torch.float64), d2)
+            @ V.to(torch.float64)).to(torch.float32)
+
+
+def phase_dkl() -> dict:
+    """Phase 11: deep kernel learning over smollm-360m at full width on the
+    `pallas` backend (see the module docstring)."""
+    from repro_torch.core.dkl import DKLModel, pooled_features
+    from repro_torch.core.gp import ExactGP, ExactGPConfig, rmse
+    from repro_torch.core.kernels_math import (
+        init_params as gp_init_params,
+        inv_softplus,
+        params_leaves,
+        params_map,
+        softplus,
+    )
+    from repro_torch.kernels import kmvm
+    from repro_torch.kernels.ops import fused_pass_or_none
+    from repro_torch.models import LM, count_params, get_arch, init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(DKL_ARCH)
+    lm = init_params(cfg, torch.Generator(device=DEV).manual_seed(DATA_SEED),
+                     dtype=torch.float32, device=DEV)
+    rng = np.random.default_rng(DATA_SEED)
+    tokens = rng.integers(0, cfg.vocab, size=(DKL_N + DKL_TEST, DKL_SEQ))
+    y = torch.as_tensor(np.sin(tokens[:, ::4].mean(1) / 8.0)
+                        + 0.05 * rng.normal(size=len(tokens)),
+                        dtype=torch.float32, device=DEV)
+    tokens = torch.as_tensor(tokens, device=DEV)
+    tok_tr, y_tr, y_te = tokens[:DKL_N], y[:DKL_N], y[DKL_N:]
+    gp = ExactGP(ExactGPConfig(kernel="matern32", backend="pallas",
+                               precond_rank=20, train_max_cg_iters=30),
+                 device=DEV)
+    phi = functools.partial(pooled_features, cfg, device=DEV)
+    # the lengthscale from the median pairwise distance of the initial
+    # features: at the default (0.693) median d2 / l^2 is about 1e3, K is
+    # the identity to e^-57, and neither the head nor the gradient into the
+    # backbone sees the features (ROADMAP C3)
+    with torch.no_grad():
+        ell = float(torch.pdist(phi(lm, tok_tr)).median())
+    p0 = gp.init_params(cfg.d_model, noise=0.2)
+    gp_params = params_map(lambda a: a.requires_grad_(), p0._replace(
+        raw_lengthscale=torch.full_like(p0.raw_lengthscale, inv_softplus(ell))))
+    model = DKLModel(gp, phi)
+    embed0 = lm.embed.detach().clone()
+    wo0 = lm.blocks[-1].mlp["wo"].detach().clone()
+    opt = torch.optim.Adam(list(lm.parameters()) + params_leaves(gp_params),
+                           lr=DKL_LR)
+    log(f"[dkl] {cfg.name}: {count_params(cfg, lm)} parameters ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV, "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab}), fp32; {DKL_N} training and "
+        f"{DKL_TEST} held-out sequences of {DKL_SEQ} tokens; target std "
+        f"{float(torch.std(y_tr, correction=0)):.4f}; lengthscale {ell:.6g} "
+        f"(median pairwise distance of the initial features)")
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmvm.reset_launch_counts()
+    losses, step_s = [], []
+    for step in range(DKL_STEPS):
+        t = time.perf_counter()
+        opt.zero_grad()
+        loss, aux = model.loss(tok_tr, y_tr, lm, gp_params,
+                               torch.Generator(device=DEV).manual_seed(step))
+        loss.backward()
+        if step == 0:
+            g_embed = float(torch.max(torch.abs(lm.embed.grad)))
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(loss.detach()))
+        log(f"[dkl] step {step}: loss {losses[-1]:.6f} in {step_s[-1]:.2f} s "
+            f"(CG {int(aux.cg_iterations.max())} iterations, residual "
+            f"{float(aux.rel_residual.max()):.3e})")
+    train_launches = dict(kmvm.launch_counts)
+    with torch.no_grad():
+        t = time.perf_counter()
+        cache = model.precompute(
+            tok_tr, y_tr, lm, gp_params,
+            generator=torch.Generator(device=DEV).manual_seed(99))
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t
+        t = time.perf_counter()
+        # train and held-out rows in one call: the train features once as
+        # the data, then all rows as queries
+        mean, var = model.predict(tok_tr, tokens, lm, gp_params, cache)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t
+    launches = dict(kmvm.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    rmse_tr = float(rmse(mean[:DKL_N], y_tr))
+    rmse_te = float(rmse(mean[DKL_N:], y_te))
+    dembed = float(torch.max(torch.abs(lm.embed.detach() - embed0)))
+    dlast = float(torch.max(torch.abs(lm.blocks[-1].mlp["wo"].detach() - wo0)))
+    log(f"[dkl] {DKL_STEPS} steps {[round(v, 3) for v in step_s]} s, losses "
+        f"{losses}; precompute {pre_s:.2f} s, predict ({len(tokens)} rows) "
+        f"{pred_s:.2f} s; peak {peak / 2**30:.2f} GiB")
+    log(f"[dkl] launches in training: B1 {train_launches['kmvm']}, B2 "
+        f"{train_launches['kmvm_dots']}; on the whole path: B1 "
+        f"{launches['kmvm']}, B2 {launches['kmvm_dots']}")
+    log(f"[dkl] max |change|: embedding {dembed:.3e}, last block's MLP out "
+        f"{dlast:.3e}; step 0's max |grad| of the embedding {g_embed:.3e}; "
+        f"train RMSE {rmse_tr:.5f}, test RMSE {rmse_te:.5f}; lengthscale "
+        f"{float(softplus(gp_params.raw_lengthscale.detach())):.6g} after training")
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"[dkl] non-finite loss: {losses}")
+    # Adam moves an entry by about lr where |grad| >> its eps (1e-8) and by
+    # lr |grad| / eps below: a move of lr / 2 says the gradient through g_X
+    # cleared eps, where K = I left it at e^-57 and the move at 5e-12
+    if not dembed >= DKL_LR / 2:
+        raise SystemExit(f"[dkl] the embedding moved {dembed:.3e} < lr / 2 = "
+                         f"{DKL_LR / 2:.1e}: no gradient reached the backbone")
+    if not (mean.shape == (len(tokens),) and bool(torch.isfinite(mean).all())
+            and bool(torch.isfinite(var).all()) and bool((var > 0).all())):
+        raise SystemExit("[dkl] predictions not finite or variances <= 0")
+
+    with torch.no_grad():
+        # the same backbone on the CPU, on 4 held-out sequences
+        lm_cpu = LM(cfg, dtype=torch.float32, device="meta").to_empty(device="cpu")
+        lm_cpu.load_state_dict(lm.state_dict())
+        probe = tokens[DKL_N:DKL_N + 4]
+        f_err = _rel(phi(lm, probe).cpu(),
+                     pooled_features(cfg, lm_cpu, probe.cpu(), device="cpu"))
+        del lm_cpu
+        log(f"[dkl] pooled features, card vs CPU (4 sequences): rel {f_err:.2e}")
+        if not f_err <= TOL[torch.float32]:
+            raise SystemExit(f"[dkl] card and CPU features differ: {f_err:.2e}")
+        feats = phi(lm, tok_tr)
+    fit_params = params_map(lambda a: a.detach(), gp_params)
+    ppass = fused_pass_or_none(gp.config.kernel, fit_params)
+    components = ppass.components
+    Xs = (feats / ppass.lengthscale).contiguous()  # as the operator passes them
+    scalars = torch.stack([torch.as_tensor(v, device=DEV).to(torch.float32)
+                           for v in ppass.scalars])
+    n, d = Xs.shape
+    log(f"[dkl] scaled features: max |x|^2 {float(Xs.square().sum(1).max()):.4g}, "
+        f"median d2 {float(torch.cdist(Xs[:256], Xs[:256]).square().median()):.4g}")
+    g = torch.Generator(device=DEV).manual_seed(11)
+    abs_err, rows = {}, {"kmvm": [], "kmvm_dots": []}
+    for t in (1, 9):
+        V = torch.randn((n, t), generator=g, device=DEV)
+        R = torch.randn((n, t), generator=g, device=DEV)
+        # K must be far from the identity, or the comparison below could
+        # not see a wrong cross term or feature walk: the off-diagonal part
+        # of K @ V at least 10x the tolerance
+        ref = kmvm.kmvm_plain(components, Xs, Xs, V, scalars)
+        k0 = kmvm._epilogue(components, scalars, torch.zeros((1, 1), device=DEV))
+        off = float(torch.max(torch.abs(ref - k0 * V)) / torch.max(torch.abs(ref)))
+        # against an fp64 evaluation (d2 summed as squared differences):
+        # printed, not gated
+        exact = _kmvm_fp64(components, scalars, Xs, V)
+        log(f"[dkl] t {t}: off-diagonal part of K @ V {off:.3e} of max|out|; "
+            f"against fp64: B1 "
+            f"{_rel(kmvm.kmvm_fused(components, Xs, Xs, V, scalars), exact):.2e}, "
+            f"plain {_rel(ref, exact):.2e}")
+        if not off >= 10 * TOL[torch.float32]:
+            raise SystemExit(f"[dkl] K is near the identity at t {t}: "
+                             f"off-diagonal part {off:.3e} of max|out|")
+        e1, e2, a1, a2 = _compare(kmvm, components, scalars, Xs, Xs, V, V, R)
+        log(f"[dkl] kernels at the trained features ({n}, {n}, d {d}, t {t}): "
+            f"B1 rel {e1:.2e} abs {a1:.2e}, B2 rel {e2:.2e} abs {a2:.2e}")
+        if not (e1 <= TOL[torch.float32] and e2 <= TOL[torch.float32]):
+            raise SystemExit(f"[dkl] MISMATCH at d {d}, t {t}: B1 {e1:.2e} "
+                             f"B2 {e2:.2e} > {TOL[torch.float32]}")
+        abs_err[t] = (a1, a2)
+        rows["kmvm"].append(_time_row(
+            "kmvm", (n, n, d, t), components,
+            lambda: kmvm.kmvm_fused(components, Xs, Xs, V, scalars),
+            lambda: kmvm.kmvm_plain(components, Xs, Xs, V, scalars), 20, 5))
+        rows["kmvm_dots"].append(_time_row(
+            "kmvm_dots", (n, n, d, t), components,
+            lambda: kmvm.kmvm_fused_dots(components, Xs, Xs, V, V, R, scalars)[0],
+            lambda: kmvm.kmvm_dots_plain(components, Xs, Xs, V, V, R, scalars)[0],
+            20, 5))
+    # ROADMAP C3, printed, not gated: the same features at the default
+    # lengthscale, where K is the identity and the expansion's rounding of
+    # d2(x, x) (of order eps |x|^2 / l^2) is all that is left of K
+    p_def = fused_pass_or_none(gp.config.kernel, gp_init_params(device=DEV))
+    Xd = (feats / p_def.lengthscale).contiguous()
+    sc_def = torch.stack([torch.as_tensor(v, device=DEV).to(torch.float32)
+                          for v in p_def.scalars])
+    V = torch.randn((n, 1), generator=g, device=DEV)
+    exact = _kmvm_fp64(p_def.components, sc_def, Xd, V)
+    b1 = kmvm.kmvm_fused(p_def.components, Xd, Xd, V, sc_def)
+    plain = kmvm.kmvm_plain(p_def.components, Xd, Xd, V, sc_def)
+    log(f"[dkl] C3, at the default lengthscale {float(p_def.lengthscale):.4g} (max |x|^2 / l^2 "
+        f"{float(Xd.square().sum(1).max()):.4g}), t 1: B1 vs plain "
+        f"{_rel(b1, plain):.2e}, B1 vs fp64 {_rel(b1, exact):.2e}, plain vs "
+        f"fp64 {_rel(plain, exact):.2e}")
+    if not (launches["kmvm"] > 0 and launches["kmvm_dots"] > 0):
+        raise SystemExit(f"[dkl] B1/B2 not launched on the path: {launches}")
+    log(f"[dkl] phase 11 in {time.perf_counter() - t_phase:.1f} s on "
+        f"{card_and_power_limit()}")
+    return {"launches": launches, "train_launches": train_launches,
+            "abs_err": abs_err, "rows": rows, "step_s": step_s,
+            "losses": losses, "precompute_s": pre_s, "predict_s": pred_s,
+            "peak_bytes": peak, "rmse": (rmse_tr, rmse_te)}
+
+
 def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -1939,6 +2179,7 @@ def main() -> None:
 
     dist.destroy_process_group()
     shutil.rmtree(dist_run["store_dir"], ignore_errors=True)
+    dkl = phase_dkl()
     log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s on "
         f"{card_and_power_limit()}")
 
@@ -1964,6 +2205,10 @@ def main() -> None:
             "tc_bound_ms": main_row["tc_bound_ms"],
             "library_ms": None, "shape": main_row["shape"],
             "timings": kern["rows"][kname],
+            "dkl_launches": dkl["launches"][kname],
+            "dkl_train_launches": dkl["train_launches"][kname],
+            "dkl_max_abs_err": {t: e[i] for t, e in dkl["abs_err"].items()},
+            "dkl_timings": dkl["rows"][kname],
             "autotune": {
                 "tuned_split": tuned["splits"],
                 "sweep_launches": {t: c[kname] for t, c in

@@ -7,9 +7,14 @@ NamedTuple tree of the reference whose leaves are numpy arrays (or anything
 imported; this covers every params tree the reference's trainers return
 (`GPParams`, `KernelParams` with its per-node `StationaryParams` /
 `RQParams` / `LinearParams` / `ScaleParams`, and the baselines'
-`SGPRParams` / `SVGPParams`). Artifacts cover the rest of
-the serving state (`repro_torch.serve.load_artifact` reads the
-reference's files).
+`SGPRParams` / `SVGPParams`, and deep kernel learning's `MLPParams`).
+Artifacts cover the rest of the serving state
+(`repro_torch.serve.load_artifact` reads the reference's files).
+
+`lm_params_from_numpy(cfg, tree, device, dtype)` carries the reference's
+LM parameter dict (`repro.models.init_params`; blocks stacked along a
+leading layer axis) onto the port's `LM`: layer i takes slice i, and the
+weights keep the reference's (in, out) layout.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import kernels_math, sgpr, svgp
+from repro_torch.core import dkl, kernels_math, sgpr, svgp
+from repro_torch.device import resolve_device
 
-_MODULES = (kernels_math, sgpr, svgp)
+_MODULES = (kernels_math, sgpr, svgp, dkl)
 
 
 def _counterpart(name: str):
@@ -40,3 +46,40 @@ def params_from_numpy(tree, device=None):
     if isinstance(tree, tuple):
         return tuple(params_from_numpy(v, device) for v in tree)
     return torch.as_tensor(np.array(tree), device=device)
+
+
+def mlp_params_from_numpy(tree, device=None) -> dkl.MLPParams:
+    """The reference's `MLPParams` (numpy leaves) -> the port's."""
+    if type(tree).__name__ != "MLPParams":
+        raise TypeError(f"expected MLPParams, got {type(tree).__name__}")
+    return params_from_numpy(tree, device)
+
+
+def lm_reference_leaf(tree, name: str) -> np.ndarray:
+    """The array of the reference's LM tree that the port's parameter
+    `name` (`LM.named_parameters()`) holds: `blocks.<i>.<key>...` is slice
+    i of the stacked `tree["blocks"][<key>]...`."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] == "blocks":
+        layer, parts = int(parts[1]), ["blocks"] + parts[2:]
+    node = tree
+    for key in parts:
+        node = node[key]
+    node = np.asarray(node)
+    return node if layer is None else node[layer]
+
+
+def lm_params_from_numpy(cfg, tree, device=None, dtype=torch.float32):
+    """The reference's LM params (numpy leaves) as the port's `LM` on
+    `device` (None = the card) in `dtype`."""
+    from repro_torch.models.model import LM
+
+    lm = LM(cfg, dtype=dtype, device="meta").to_empty(device=resolve_device(device))
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            leaf = lm_reference_leaf(tree, name)
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: reference {leaf.shape} vs {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(np.array(leaf)))
+    return lm

@@ -638,3 +638,52 @@ def test_sparse_serving_on_card_matches_cpu(cuda):
     assert c0 == 0 and c1 > 0
     assert _rel_err(m1, m0) <= 1e-3
     assert _rel_err(v1, v0_) <= 1e-3
+
+
+@pytest.mark.parametrize("t", (1, 9))
+def test_b1_b2_at_d960_on_pooled_backbone_features(cuda, t):
+    """B2 (and B1) at d = 960, smollm-360m's width, on the mean-pooled
+    hidden states of a backbone of that width cut to 2 layers, against the
+    plain versions at the kernels' tolerance. The lengthscale is the
+    features' median pairwise distance, so K is far from the identity: the
+    off-diagonal part of K @ V must be at least 10x the tolerance, or the
+    comparison could not see a wrong cross term or feature walk."""
+    from repro_torch.core.dkl import pooled_features
+    from repro_torch.core.kernels_math import init_params
+    from repro_torch.kernels.ops import fused_pass_or_none
+    from repro_torch.models import get_arch
+    from repro_torch.models import init_params as lm_init_params
+
+    cfg = get_arch("smollm-360m").reduced(n_layers=2, d_model=960)
+    lm = lm_init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        torch.float32, cuda)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, size=(1000, 32))
+    with torch.no_grad():
+        X = pooled_features(cfg, lm, tokens, device=cuda)
+    assert X.shape == (1000, 960)
+    ell = float(torch.pdist(X).median())
+    ppass = fused_pass_or_none("matern32",
+                               init_params(lengthscale=ell, device=cuda))
+    Xs = (X / ppass.lengthscale).contiguous()
+    scalars = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=cuda)
+                           for s in ppass.scalars])
+    V, R = (torch.as_tensor(rng.standard_normal((1000, t)), dtype=torch.float32,
+                            device=cuda) for _ in range(2))
+    components = ppass.components
+    out = kmvm.kmvm_fused(components, Xs, Xs, V, scalars)
+    out2, dots = kmvm.kmvm_fused_dots(components, Xs, Xs, V, V, R, scalars)
+    torch.cuda.synchronize()
+    ref2, ref_dots = kmvm.kmvm_dots_plain(components, Xs, Xs, V, V, R, scalars)
+    k0 = kmvm._epilogue(components, scalars, torch.zeros((1, 1), device=cuda))
+    off_diag = ref2 - k0 * V
+    assert float(off_diag.abs().max()) >= 10 * TOL[torch.float32] * float(ref2.abs().max())
+    assert _rel_err(out, ref2) <= TOL[torch.float32]
+    assert _rel_err(out2, ref2) <= TOL[torch.float32]
+    terms = (ref2 * V, R * V, R * R, V * V)
+    for q in range(4):
+        err = float(torch.max(torch.abs(dots[q] - ref_dots[q])))
+        if t == 1:  # one column: held to its terms' magnitudes, as above
+            assert err <= TOL[torch.float32] * float(torch.sum(torch.abs(terms[q]))), q
+        else:
+            assert _rel_err(dots[q], ref_dots[q]) <= TOL[torch.float32], q

@@ -9,7 +9,9 @@
   launchers, the serving fleet, training: `fit_exact_gp`, `exact_mll`, the
   blocksparse backend, the distributed engine: `init_distributed`,
   `make_mesh`, `make_host_mesh`, the sharded operator, and the baselines:
-  `fit_sgpr`, `fit_svgp`, `init_sgpr_params`, `init_svgp_params`).
+  `fit_sgpr`, `fit_svgp`, `init_sgpr_params`, `init_svgp_params`, and deep
+  kernel learning: the LM's `init_params` / `LM`, `pooled_features`,
+  `init_mlp`, `make_mlp_dkl`, `DKLModel.loss`).
 * A non-CPU tensor handed to a kernel wrapper never reaches the plain
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
 """
@@ -33,7 +35,8 @@ from repro_torch.serve import PredictionEngine, fit_posterior
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "dkl_lm_features_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -70,6 +73,9 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch.kernels.autotune, repro_torch.train.checkpoint\n"
         "from repro_torch.train import CheckpointManager, fit_sgpr, fit_svgp\n"
         "from repro_torch.serve import ServeFleet, ContinuousBatcher\n"
+        "import repro_torch.models, repro_torch.core.dkl, repro_torch.configs\n"
+        "from repro_torch.models import get_arch, list_archs\n"
+        "assert all(get_arch(a).name == a for a in list_archs())\n"
         "X = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)\n"
         "op = make_operator(OperatorConfig(backend='pallas'), X, init_params(),"
         " device='cpu')\n"
@@ -196,6 +202,32 @@ def test_non_cpu_tensor_never_reaches_blocksparse_plain(monkeypatch):
         kmvm_sparse.kmvm_blocksparse((("rbf",),), X, X, V,
                                      torch.empty((2,), **meta), ptr, ptr,
                                      tile=8)
+
+
+def test_dkl_entry_points_raise_without_a_card(monkeypatch):
+    """The LM, its pooled features and the DKL loss refuse to run on the
+    CPU when no card is there and no device is named."""
+    from repro_torch.core.dkl import (
+        DKLModel, init_mlp, make_mlp_dkl, mlp_apply, pooled_features)
+    from repro_torch.core.gp import ExactGP
+    from repro_torch.models import LM, get_arch
+    from repro_torch.models import init_params as lm_init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("smollm-360m").reduced(n_layers=1, d_model=32, vocab=64)
+    lm = LM(cfg, dtype=torch.float32, device="cpu")
+    tokens = np.zeros((4, 8), np.int64)
+    phi = init_mlp(None, (3, 4), device="cpu")
+    X, y = np.zeros((8, 3), np.float32), np.zeros(8, np.float32)
+    for call in (lambda: lm_init_params(cfg),
+                 lambda: LM(cfg),
+                 lambda: pooled_features(cfg, lm, tokens),
+                 lambda: init_mlp(None, (3, 4)),
+                 lambda: make_mlp_dkl(None, 3),
+                 lambda: DKLModel(ExactGP(), mlp_apply).loss(
+                     X, y, phi, init_params())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_distributed_entry_points_raise_without_a_card(monkeypatch):
