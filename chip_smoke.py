@@ -207,7 +207,31 @@ caught and skipped):
    and their bounds. Printed, not gated: B1 and the plain version against
    an fp64 evaluation, and the same at the default lengthscale, where K is
    the identity (ROADMAP C3).
-12. The phases' seconds beside the card's name and power limit (again, so
+12. Serving the LMs (`repro_torch.launch.serve`'s `main`, in-process,
+   `--full`, fp32 weights from a seeded generator) for six families at
+   their published width and depth, one model on the card at a time:
+   smollm-360m (batch 4, prompt 256), qwen2-moe-a2.7b (4 x 256),
+   mamba2-130m (4 x 1000, not a multiple of its 256-token chunk),
+   hymba-1.5b (2 x 1536, past its 1024-token window), seamless-m4t-large-v2
+   (4 x 256 tokens on 256 encoder frames) and qwen2-vl-7b (4 x 256, patch
+   embeddings on the first 64 positions); prefill, then 31 greedy decode
+   steps. Printed per arch: parameters, prefill ms, decode tokens per
+   second and the decode steps' ms (first, median), peak memory, the
+   card's name and power limit; for MoE the (token, k) pairs the prefill
+   drops at capacity factor 1.25. Gates: (a) every logit finite; (b) decode
+   steps 1-4 within 2e-3 of max|logit| of the full forward at the same
+   positions over the same tokens (the reference's own check,
+   `tests/test_models_smoke.py:81`), per sequence. For MoE the top-k
+   choice is discontinuous, and a token at a near-tie may route
+   differently in the two runs: at its own top-k with capacity factor
+   E / k (nothing drops, gated) the sequences that routed alike must
+   agree and any that did not must have first differed at a margin below
+   1e-4, and with every expert active (top-k = E, routing continuous)
+   every sequence must agree; (c) the position after decoding is prompt +
+   31; (d) at the published width but depth 2, `forward_hidden` on 2 x 32
+   tokens on the card within 2e-4 of max|h| of the CPU's, same weights.
+   B1-B4's launches over the phase are printed (none on this path).
+13. The phases' seconds beside the card's name and power limit (again, so
    the end of the output holds them), the `kernels` JSON line, then the
    last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -258,6 +282,21 @@ DKL_TEST = 1024            # held-out sequences
 DKL_SEQ = 64               # tokens per sequence
 DKL_STEPS = 3
 DKL_LR = 3e-3              # Adam's, over the backbone and the GP head
+# phase 12: (arch, batch, prompt tokens, vlm patch positions), each at its
+# published width and depth
+SERVE_LM = (
+    ("smollm-360m", 4, 256, 0),
+    ("qwen2-moe-a2.7b", 4, 256, 0),
+    ("mamba2-130m", 4, 1000, 0),       # not a multiple of ssm_chunk 256
+    ("hymba-1.5b", 2, 1536, 0),        # past the 1024-token window
+    ("seamless-m4t-large-v2", 4, 256, 0),
+    ("qwen2-vl-7b", 4, 256, 64),
+)
+SERVE_GEN = 32             # tokens per sequence: prefill's + 31 decode steps
+SERVE_CHECK_STEPS = 4      # decode steps held against the full forward
+SERVE_LOGIT_TOL = 2e-3     # of max|logit| (tests/test_models_smoke.py:81)
+SERVE_CPU_LAYERS = 2       # gate (d): card vs CPU at full width, this depth
+SERVE_CPU_SHAPE = (2, 32)  # sequences x tokens
 DEV = "cuda"
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_SPLIT_FLOPS = 495e12 / 3   # 3xTF32: three TF32 products per product
@@ -2141,6 +2180,225 @@ def phase_dkl() -> dict:
             "peak_bytes": peak, "rmse": (rmse_tr, rmse_te)}
 
 
+def _record_routes(lm, fn):
+    """Run fn() under forward hooks on every MoE layer: fn's result and, per
+    layer, over all of the layer's calls in order (concatenated along S):
+    the experts (sorted) each token chose (B, S, k), its top-k margin, the
+    k-th less the (k + 1)-th router probability (B, S), and whether each
+    (token, k) pair kept a slot (B, S * k)."""
+    from repro_torch.models.moe import moe_route
+
+    rec = [[] for _ in lm.blocks]
+
+    def hook_for(i):
+        def hook(mod, args, kwargs, out):
+            k = kwargs["top_k"]
+            probs, _, top_i, _, _, keep, _ = moe_route(
+                mod, args[0], top_k=k, capacity_factor=kwargs["capacity_factor"])
+            srt = torch.sort(probs, -1, descending=True).values
+            rec[i].append((torch.sort(top_i, -1).values,
+                           srt[..., k - 1] - srt[..., k], keep))
+        return hook
+
+    handles = [blk.moe.register_forward_hook(hook_for(i), with_kwargs=True)
+               for i, blk in enumerate(lm.blocks)]
+    try:
+        out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, [tuple(torch.cat(parts, 1) for parts in zip(*calls))
+                 for calls in rec]
+
+
+def _drops(routes) -> tuple:
+    """(dropped, all) (token, k) pairs over the layers' `_record_routes`."""
+    return (sum(int((~keep).sum()) for _, _, keep in routes),
+            sum(keep.numel() for _, _, keep in routes))
+
+
+def _decode_vs_forward(cfg, lm, batch, chk):
+    """Per sequence and step, prefill's and the first SERVE_CHECK_STEPS
+    decode steps' logits in `chk` (a `generate` result) against the full
+    forward's at the same positions over the same tokens, relative to that
+    sequence's max|logit| there: (B, steps + 1)."""
+    from repro_torch.models import forward_hidden
+
+    p = batch["tokens"].shape[1]
+    steps = chk["tokens"][:, :SERVE_CHECK_STEPS]     # their input tokens
+    full = dict(batch, tokens=torch.cat([batch["tokens"], steps], 1))
+    if "embeds" in batch:
+        pad = torch.zeros_like(batch["embeds"][:, :SERVE_CHECK_STEPS])
+        full["embeds"] = torch.cat([batch["embeds"], pad], 1)
+        full["embed_mask"] = torch.cat(
+            [batch["embed_mask"], torch.zeros_like(steps, dtype=torch.bool)], 1)
+    with torch.no_grad():
+        h, _ = forward_hidden(cfg, lm, full)
+        ref = h[:, p - 1:].to(torch.float32) @ lm.embed.to(torch.float32).T
+    dec = chk["logits"][:, :SERVE_CHECK_STEPS + 1]
+    return (torch.amax(torch.abs(dec - ref), -1) /
+            torch.amax(torch.abs(ref), -1)).cpu()
+
+
+def _moe_check(cfg, lm, batch, tag) -> list:
+    """Gate (b) for an MoE config. The top-k choice is discontinuous: a
+    token whose k-th and (k + 1)-th router probabilities lie within fp32
+    rounding of each other may route differently in the full forward than
+    in prefill / decode (other matmul shapes, other rounding), and the
+    difference then spreads through attention to the later tokens of its
+    sequence (routing is per sequence, so no further). So: (1) at its own
+    top-k, where nothing drops (capacity factor E / k: a slot for every
+    token), every sequence whose tokens all routed alike in both runs,
+    every layer, must agree within the tolerance, and a sequence that
+    routed differently must have done so first at a margin below 1e-4
+    (a near-tie, not a fault); (2) with every expert active (top-k = E,
+    capacity factor 1: routing continuous), every sequence must agree."""
+    from repro_torch.launch import serve
+
+    nb, p = batch["tokens"].shape
+    n = p + SERVE_CHECK_STEPS
+    chk_cfg = cfg._replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    chk, dec_routes = _record_routes(
+        lm, lambda: serve.generate(chk_cfg, lm, batch, SERVE_CHECK_STEPS + 1))
+    errs, full_routes = _record_routes(
+        lm, lambda: _decode_vs_forward(chk_cfg, lm, batch, chk))
+    flips = torch.zeros((nb,), dtype=torch.bool)
+    for layer, ((di, dm, _), (fi, fm, _)) in enumerate(zip(dec_routes,
+                                                           full_routes)):
+        diff = (di[:, :n] != fi[:, :n]).any(-1).cpu()       # (B, n)
+        for b in torch.nonzero(diff.any(-1) & ~flips).flatten().tolist():
+            s0 = int(torch.nonzero(diff[b])[0])
+            margin = float(torch.minimum(dm[b, s0], fm[b, s0]))
+            log(f"{tag}: sequence {b} first routes differently at layer {layer}, "
+                f"token {s0}, top-{cfg.top_k} margin {margin:.3e}")
+            if not margin <= 1e-4:
+                raise SystemExit(f"{tag}: routing differs at margin {margin:.3e}")
+            flips[b] = True
+    drops = _drops(full_routes)
+    log(f"{tag}: at top-{cfg.top_k}, capacity factor {chk_cfg.capacity_factor}: "
+        f"{drops[0]} of {drops[1]} pairs dropped; {int(flips.sum())} of {nb} "
+        f"sequences routed differently; decode steps 1-{SERVE_CHECK_STEPS} vs "
+        f"the full forward per sequence: "
+        f"{[[round(float(e), 8) for e in row[1:]] for row in errs]}")
+    clean = errs[~flips, 1:]
+    if drops[0] or (clean.numel() and not float(clean.max()) <= SERVE_LOGIT_TOL):
+        raise SystemExit(f"{tag}: decode differs from the full forward where "
+                         f"routing agreed: {clean.tolist()}, drops {drops[0]}")
+    dense_cfg = cfg._replace(top_k=cfg.n_experts, capacity_factor=1.0)
+    chk = serve.generate(dense_cfg, lm, batch, SERVE_CHECK_STEPS + 1)
+    errs_all = _decode_vs_forward(dense_cfg, lm, batch, chk)
+    log(f"{tag}: every expert active (top-{cfg.n_experts}): decode vs the full "
+        f"forward, worst sequence per step {errs_all.amax(0).tolist()}")
+    return errs_all.amax(0).tolist()
+
+
+def _serve_lm_one(arch, b, p, patches) -> dict:
+    """One arch of phase 12: `launch.serve`'s main at full width, then
+    gates (a)-(d) (see the module docstring)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, forward_hidden, init_params
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_arch = time.perf_counter()
+    argv = ["--arch", arch, "--full", "--batch", str(b), "--prompt-len", str(p),
+            "--gen", str(SERVE_GEN), "--device", DEV]
+    if patches:
+        argv += ["--patches", str(patches)]
+    rep = serve.main(argv)
+    cfg, lm, batch = rep["cfg"], rep["lm"], rep["batch"]
+    # the launcher's run is the first call at this model's shapes; a second
+    # run of the same path gives the warm times
+    warm = serve.generate(cfg, lm, batch, SERVE_GEN)
+    timed = {"params": rep["params"], "prefill_ms_first": rep["prefill_ms"],
+             "tokens_per_s_first": rep["tokens_per_s"],
+             "prefill_ms": warm["prefill_ms"], "tokens_per_s": warm["tokens_per_s"],
+             "step_ms_median": float(np.median(warm["step_ms"])),
+             "step_ms_max": max(warm["step_ms"])}
+    if not torch.equal(warm["tokens"], rep["tokens"]):
+        raise SystemExit(f"[serve-lm] {arch}: a second run decoded other tokens")
+    del warm
+    tag = f"[serve-lm] {cfg.name}"
+    # (a) every logit finite, prefill's and each decode step's
+    if not bool(torch.isfinite(rep["logits"]).all()):
+        raise SystemExit(f"{tag}: non-finite logits")
+    # (c) the position after prefill and gen - 1 steps
+    if rep["state"]["t"] != p + SERVE_GEN - 1:
+        raise SystemExit(f"{tag}: t {rep['state']['t']} != {p + SERVE_GEN - 1}")
+    # (b) decode steps 1..4 against the full forward over the same tokens
+    drops = None
+    if cfg.family == "moe":
+        with torch.no_grad():
+            drops = _drops(_record_routes(
+                lm, lambda: forward_hidden(cfg, lm, batch))[1])
+        log(f"{tag}: prefill at capacity factor {cfg.capacity_factor} drops "
+            f"{drops[0]} of {drops[1]} (token, k) pairs over {cfg.n_layers} layers")
+        del rep["state"]
+        errs = _moe_check(cfg, lm, batch, tag)
+    else:
+        errs = _decode_vs_forward(cfg, lm, batch, rep).amax(0).tolist()
+    log(f"{tag}: logits vs the full forward (rel to max|logit|): prefill "
+        f"{errs[0]:.2e}, decode steps 1-{SERVE_CHECK_STEPS} "
+        f"{', '.join(f'{e:.2e}' for e in errs[1:])}")
+    if not max(errs[1:]) <= SERVE_LOGIT_TOL:
+        raise SystemExit(f"{tag}: decode differs from the full forward: "
+                         f"{errs[1:]} > {SERVE_LOGIT_TOL}")
+    peak = torch.cuda.max_memory_allocated()
+    del rep, lm
+    torch.cuda.empty_cache()
+    # (d) the card against the CPU, same weights, published width, depth 2
+    cfg2 = cfg._replace(n_layers=SERVE_CPU_LAYERS,
+                        n_enc_layers=SERVE_CPU_LAYERS if cfg.is_encdec else 0)
+    lm2 = init_params(cfg2, torch.Generator(device=DEV).manual_seed(1),
+                      dtype=torch.float32, device=DEV)
+    lm2_cpu = LM(cfg2, dtype=torch.float32, device="meta").to_empty(device="cpu")
+    lm2_cpu.load_state_dict(lm2.state_dict())
+    nb, ns = SERVE_CPU_SHAPE
+    b2 = serve.make_batch(cfg2, nb, ns, patches=ns // 4 if patches else 0,
+                          seed=2, device=DEV)
+    with torch.no_grad():
+        h_card = forward_hidden(cfg2, lm2, b2)[0].cpu()
+        h_cpu = forward_hidden(cfg2, lm2_cpu,
+                               {k: v.cpu() for k, v in b2.items()})[0]
+    cpu_err = _rel(h_card, h_cpu)
+    del lm2, lm2_cpu
+    torch.cuda.empty_cache()
+    log(f"{tag}: forward_hidden at depth {SERVE_CPU_LAYERS}, card vs CPU "
+        f"({nb} x {ns} tokens): rel {cpu_err:.2e}")
+    if not cpu_err <= TOL[torch.float32]:
+        raise SystemExit(f"{tag}: card and CPU differ: {cpu_err:.2e}")
+    return {"arch": arch, "family": cfg.family, **timed, "batch": b,
+            "prompt": p, "gen": SERVE_GEN, "patches": patches,
+            "peak_gib": peak / 2**30, "decode_errs": errs, "cpu_err": cpu_err,
+            "moe_drops": drops, "seconds": time.perf_counter() - t_arch}
+
+
+def phase_serve_lm() -> dict:
+    """Phase 12: `launch.serve` for each family at its published width and
+    depth (see the module docstring)."""
+    from repro_torch.kernels import kmvm
+    from repro_torch.sparse import kmvm_sparse
+
+    t_phase = time.perf_counter()
+    kmvm.reset_launch_counts()
+    kmvm_sparse.reset_launch_counts()
+    rows = [_serve_lm_one(*case) for case in SERVE_LM]
+    launches = {**kmvm.launch_counts, **kmvm_sparse.launch_counts}
+    card = card_and_power_limit()
+    for r in rows:
+        log(f"[serve-lm] {r['arch']} ({r['family']}, {r['params']} parameters, "
+            f"fp32): batch {r['batch']} x prompt {r['prompt']}: prefill "
+            f"{r['prefill_ms']:.1f} ms, decode {r['tokens_per_s']:.1f} tokens/s "
+            f"(step {r['step_ms_median']:.2f} ms median, {r['step_ms_max']:.2f} "
+            f"ms max); first call: prefill {r['prefill_ms_first']:.1f} ms, "
+            f"decode {r['tokens_per_s_first']:.1f} tokens/s; peak {r['peak_gib']:.2f} GiB, {r['seconds']:.1f} s; {card}")
+    log(f"[serve-lm] B1-B4 launches on the LM serving path: {launches}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[serve-lm] phase 12 in {seconds:.1f} s on {card}")
+    return {"rows": rows, "launches": launches, "seconds": seconds}
+
+
 def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -2180,8 +2438,9 @@ def main() -> None:
     dist.destroy_process_group()
     shutil.rmtree(dist_run["store_dir"], ignore_errors=True)
     dkl = phase_dkl()
-    log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s on "
-        f"{card_and_power_limit()}")
+    serve_lm = phase_serve_lm()
+    log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s (phase 12 "
+        f"{serve_lm['seconds']:.1f} s) on {card_and_power_limit()}")
 
     kernels = []
     sources = {"kmvm": ("src/repro_torch/kernels/csrc/kmvm.cu",
@@ -2252,6 +2511,7 @@ def main() -> None:
         "library_ms": None,
         "shape": row["shape"], "timings": b3["rows"]})
     log(f"[table1] {json.dumps(table1['rows'])}")
+    log(f"[serve-lm] {json.dumps(serve_lm['rows'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -30,9 +30,9 @@ per step with the solver record's counters) and writes the JSONL when it
 ends, rank 0 to PATH and rank r > 0 to PATH.rank<r>; render it with
 `python -m repro_torch.launch.obs_report PATH`.
 
-The LM stack (`--arch` other than gp-exact-1m, with --batch / --seq /
---lr / --full / --ckpt) is not ported (ROADMAP A, "DKL and the LM stack")
-and raises.
+The LM trainer (`--arch` other than gp-exact-1m, with --batch / --seq /
+--lr / --full / --ckpt) is not ported (ROADMAP A, "The LM trainer") and
+raises.
 """
 
 from __future__ import annotations
@@ -93,9 +93,9 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.arch != GP_ARCH:
         raise NotImplementedError(
-            f"--arch {args.arch!r}: the LM stack is not ported to repro_torch "
-            f"(ROADMAP A, \"DKL and the LM stack\"); only --arch {GP_ARCH} "
-            f"runs")
+            f"--arch {args.arch!r}: training the LM stack is not ported to "
+            f"repro_torch (ROADMAP A, \"The LM trainer\"); only --arch "
+            f"{GP_ARCH} runs")
     return _train_gp(args)
 
 

@@ -1,17 +1,14 @@
-"""The LM stack for the dense family (the counterpart of `repro.models`).
-
-Prefill and cached decode (`init_decode_state`, `decode_step`) and the
-other families wait for ROADMAP A2.
-"""
+"""The LM stack for every family (the counterpart of `repro.models`)."""
 
 from .config import ArchConfig
 from .model import (
-    LM, count_active_params, count_params, forward_hidden, init_params,
-    train_loss,
+    LM, count_active_params, count_params, decode_step, forward_hidden,
+    init_decode_state, init_params, prefill, train_loss,
 )
 from .registry import get_arch, list_archs
 
 __all__ = [
     "ArchConfig", "LM", "init_params", "train_loss", "forward_hidden",
-    "count_params", "count_active_params", "get_arch", "list_archs",
+    "init_decode_state", "prefill", "decode_step", "count_params",
+    "count_active_params", "get_arch", "list_archs",
 ]

@@ -1,4 +1,4 @@
-"""GQA attention: the query-chunked training/prefill path.
+"""GQA attention: the query-chunked training/prefill path and cached decode.
 
 The counterpart of `repro.models.attention`, computed as the reference
 computes it (no fused attention call, so parity holds at the fp32
@@ -9,8 +9,9 @@ resident, and the peak score memory is (B, H, attn_chunk, S) instead of
 Each chunk is checkpointed under autograd, so the backward recomputes a
 chunk's probabilities instead of keeping every chunk's resident.
 
-Masks: causal, causal + sliding window (window > 0), or none. The cached
-decode path (`decode_attention`) waits for the serving slice (ROADMAP A2).
+Masks: causal, causal + sliding window (window > 0), or none (encoder,
+cross-attention). Decode (`decode_attention`) attends one new token
+against the KV cache.
 """
 
 from __future__ import annotations
@@ -78,6 +79,29 @@ def attention(q, k, v, *, causal: bool, window: int = 0, chunk: int = 1024,
         out = torch.stack([one_chunk(ci, qc[ci]) for ci in range(nchunks)])
     out = out.permute(1, 0, 3, 2, 4).reshape(b, nchunks * chunk, hq, hd)
     return out[:, :sq]
+
+
+def decode_attention(q, k_cache, v_cache, t: int, *, window: int = 0):
+    """One-token decode: q (B, 1, Hq, hd) vs cache (B, S, Hkv, hd).
+
+    `t` (a host int) is the position of the new token, already written to
+    slot t: slots after t are masked, and with window > 0 so are slots
+    <= t - window. A masked slot would take -1e30 and a softmax weight of
+    exactly 0, so only the slots that take part, [lo, t], are read: the
+    work per token grows with t, not with the cache's length. Scores and
+    softmax are fp32. Each KV head serves its Hq / Hkv consecutive query
+    heads (as `_repeat_kv`), grouped here so the cache is never repeated.
+    """
+    b, _, hq, hd = q.shape
+    hkv = k_cache.shape[2]
+    lo = max(t - window + 1, 0) if window > 0 else 0
+    k = k_cache[:, lo:t + 1].to(torch.float32)            # (B, s, Hkv, hd)
+    v = v_cache[:, lo:t + 1].to(torch.float32)
+    qg = q.reshape(b, hkv, hq // hkv, hd).to(torch.float32)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qg, k) * hd ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", probs, v)
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
 def attn_params(generator, d: int, hq: int, hkv: int, hd: int, dtype,

@@ -1,11 +1,22 @@
-"""Transformer blocks: the dense family.
+"""Per-family transformer blocks (the counterpart of `repro.models.blocks`).
 
-The counterpart of the dense branch of `repro.models.blocks`
-(`block_params`, `block_apply`): pre-norm GQA attention with RoPE and a
-residual, then a pre-norm (Sw)iGLU or GeLU MLP and a residual. The other
-families (moe, ssm, hybrid, encdec, vlm) and the cached decode path are
-not ported yet: a block of any other family raises, naming the ROADMAP
-item that ports it, and never falls through to the dense path.
+Families:
+  dense / vlm       pre-norm GQA attention + (Sw)iGLU / GeLU MLP
+  moe               attention + top-k MoE FFN (+ shared experts)
+  ssm               Mamba-2 SSD block (attention-free, no MLP: d_ff = 0)
+  hybrid (hymba)    PARALLEL attention + SSM heads on the same normed
+                    input, averaged (arXiv:2411.13676), then the MLP; a
+                    per-layer window (0 = global attention)
+  encdec decoder    self-attention + cross-attention + MLP (seamless); the
+                    encoder's blocks are built with family "encdec" and no
+                    cross-attention, and run non-causal
+
+`Block.forward(cfg, x, positions, win, enc_out)` is the train / prefill
+path and returns (x, moe_aux); `Block.decode(cfg, x, cache, t, win)` is
+one cached token at position t and writes the layer's cache in place.
+Both take the config from the caller, as the reference's `block_apply`
+does, so a caller may override a field that shapes no weight (the MoE
+capacity factor).
 """
 
 from __future__ import annotations
@@ -13,50 +24,150 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import attention, attn_params, qkv_proj
-from .layers import apply_norm, apply_rope, mlp_apply, mlp_params, norm_param
+from .attention import attention, attn_params, decode_attention, qkv_proj
+from .layers import apply_norm, apply_positional, mlp_apply, mlp_params, norm_param
+from .moe import MoE
+from .ssd import ssd_apply, ssd_decode_step, ssd_init_state, ssd_params
 
-PORTED_FAMILIES = ("dense",)
-
-
-def check_family(cfg) -> None:
-    """Raise for a family the port does not have yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            "ROADMAP A2 (the other families) ports the moe, ssm, hybrid, "
-            "encdec and vlm blocks")
+ATTN_FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
+FAMILIES = ATTN_FAMILIES + ("ssm",)
 
 
 class Block(nn.Module):
-    """One dense block; parameters named as the reference's layer dict
-    (`ln1`, `attn.{wq,wk,wv,wo}`, `ln2`, `mlp.{wi,wg,wo}`)."""
+    """One layer; parameters named as the reference's layer dict (`ln1`,
+    `attn.*`, `ln2`, `mlp.*`, `moe.*`, `ssm.*`, `ln_cross`, `cross.*`)."""
 
-    def __init__(self, cfg, generator, dtype, device):
+    def __init__(self, cfg, generator, dtype, device, *, cross: bool = False):
         super().__init__()
-        check_family(cfg)
-        self.cfg = cfg
+        fam = cfg.family
+        if fam not in FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {fam!r}; "
+                             f"options: {FAMILIES}")
         d = cfg.d_model
         self.ln1 = norm_param(cfg.norm, d, dtype, device)
-        self.attn = attn_params(generator, d, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.hd, dtype, device)
-        self.ln2 = norm_param(cfg.norm, d, dtype, device)
-        self.mlp = mlp_params(cfg.mlp, generator, d, cfg.d_ff, dtype, device)
+        if fam in ATTN_FAMILIES:
+            self.attn = attn_params(generator, d, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.hd, dtype, device)
+        if fam == "moe":
+            self.ln2 = norm_param(cfg.norm, d, dtype, device)
+            self.moe = MoE(generator, d, cfg.d_ff, cfg.n_experts,
+                           cfg.n_shared_experts, dtype, device)
+        elif fam != "ssm":
+            self.ln2 = norm_param(cfg.norm, d, dtype, device)
+            self.mlp = mlp_params(cfg.mlp, generator, d, cfg.d_ff, dtype, device)
+        if fam in ("ssm", "hybrid"):
+            self.ssm = ssd_params(generator, cfg, dtype, device)
+        if cross:
+            self.ln_cross = norm_param(cfg.norm, d, dtype, device)
+            self.cross = attn_params(generator, d, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.hd, dtype, device)
 
-    def _attn_branch(self, xn, positions):
-        cfg = self.cfg
+    # -- train / prefill ----------------------------------------------------
+
+    def _attn_branch(self, cfg, xn, positions, win, causal):
         q, k, v = qkv_proj(self.attn, xn, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        out = attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        q = apply_positional(cfg, q, positions)
+        k = apply_positional(cfg, k, positions)
+        out = attention(q, k, v, causal=causal, window=win, chunk=cfg.attn_chunk)
         b, s = xn.shape[:2]
         return out.reshape(b, s, -1) @ self.attn["wo"]
 
-    def forward(self, x, positions):
-        """One block, training/prefill (full causal attention: the dense
-        family has no sliding window). Returns (x, aux); aux (the MoE
-        balance loss) is 0 for the dense family."""
-        cfg = self.cfg
-        x = x + self._attn_branch(apply_norm(cfg.norm, x, self.ln1), positions)
-        x = x + mlp_apply(cfg.mlp, self.mlp, apply_norm(cfg.norm, x, self.ln2))
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    def _ffn(self, cfg, x, capacity_factor):
+        """The pre-norm FFN residual: (x, moe_aux)."""
+        if cfg.family == "ssm":
+            return x, None
+        xn = apply_norm(cfg.norm, x, self.ln2)
+        if cfg.family == "moe":
+            mo, aux = self.moe(xn, top_k=cfg.top_k, capacity_factor=capacity_factor)
+            return x + mo, aux
+        return x + mlp_apply(cfg.mlp, self.mlp, xn), None
+
+    def forward(self, cfg, x, positions, win: int = 0, enc_out=None, *,
+                causal: bool = True):
+        """One block, training / prefill. Returns (x, moe_aux)."""
+        xn = apply_norm(cfg.norm, x, self.ln1)
+        fam = cfg.family
+        if fam == "hybrid":
+            attn_out = self._attn_branch(cfg, xn, positions, win, True)
+            ssm_out = ssd_apply(self.ssm, cfg, xn)
+            x = x + 0.5 * (attn_out + ssm_out)
+        elif fam == "ssm":
+            x = x + ssd_apply(self.ssm, cfg, xn)
+        else:
+            x = x + self._attn_branch(cfg, xn, positions, win, causal)
+
+        if enc_out is not None:  # cross-attention (enc-dec decoder)
+            xn = apply_norm(cfg.norm, x, self.ln_cross)
+            b, s = xn.shape[:2]
+            se = enc_out.shape[1]
+            q = (xn @ self.cross["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+            k = (enc_out @ self.cross["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+            v = (enc_out @ self.cross["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+            out = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+            x = x + out.reshape(b, s, -1) @ self.cross["wo"]
+
+        x, aux = self._ffn(cfg, x, cfg.capacity_factor)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
+
+    # -- cached decode ------------------------------------------------------
+
+    def _attn_decode_branch(self, cfg, xn, cache, t: int, win: int):
+        b = xn.shape[0]
+        q, k, v = qkv_proj(self.attn, xn, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        pos = torch.full((b, 1), t, dtype=torch.int32, device=xn.device)
+        if cfg.mrope_sections:
+            pos = pos[None].expand(3, b, 1)
+        q = apply_positional(cfg, q, pos)
+        k = apply_positional(cfg, k, pos)
+        cache["k"][:, t] = k[:, 0]
+        cache["v"][:, t] = v[:, 0]
+        out = decode_attention(q, cache["k"], cache["v"], t, window=win)
+        return out.reshape(b, 1, -1) @ self.attn["wo"]
+
+    def decode(self, cfg, x, cache, t: int, win: int = 0):
+        """One block, one new token x (B, 1, D) at position t (a host int).
+        Writes the layer's `cache` in place; returns x."""
+        xn = apply_norm(cfg.norm, x, self.ln1)
+        fam = cfg.family
+        if fam == "hybrid":
+            a_out = self._attn_decode_branch(cfg, xn, cache, t, win)
+            s_out, _ = ssd_decode_step(self.ssm, cfg, cache["ssm"], xn)
+            x = x + 0.5 * (a_out + s_out)
+        elif fam == "ssm":
+            s_out, _ = ssd_decode_step(self.ssm, cfg, cache["ssm"], xn)
+            x = x + s_out
+        else:
+            x = x + self._attn_decode_branch(cfg, xn, cache, t, win)
+
+        if "ck" in cache:  # cross-attention against the encoder's K/V
+            xn = apply_norm(cfg.norm, x, self.ln_cross)
+            b = xn.shape[0]
+            q = (xn @ self.cross["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+            out = decode_attention(q, cache["ck"], cache["cv"],
+                                   cache["ck"].shape[1] - 1)
+            x = x + out.reshape(b, 1, -1) @ self.cross["wo"]
+
+        # MoE at capacity factor 8: one token per sequence never drops
+        x, _ = self._ffn(cfg, x, 8.0)
+        return x
+
+
+def init_layer_cache(cfg, batch: int, max_seq: int, dtype, device=None,
+                     *, enc_len: int = 0) -> dict:
+    """The cache of ONE layer: `k` / `v` (B, max_seq, Hkv, hd) for the
+    attention families, `ssm` ({"conv", "ssm"}) for ssm and hybrid, and
+    `ck` / `cv` (B, enc_len, Hkv, hd) for an enc-dec decoder."""
+    c = {}
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    if cfg.family in ATTN_FAMILIES:
+        c["k"] = torch.zeros(kv, dtype=dtype, device=device)
+        c["v"] = torch.zeros(kv, dtype=dtype, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        c["ssm"] = ssd_init_state(cfg, batch, dtype, device)
+    if enc_len:
+        ckv = (batch, enc_len, cfg.n_kv_heads, cfg.hd)
+        c["ck"] = torch.zeros(ckv, dtype=dtype, device=device)
+        c["cv"] = torch.zeros(ckv, dtype=dtype, device=device)
+    return c

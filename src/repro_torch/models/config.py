@@ -1,8 +1,7 @@
 """Unified architecture config covering all 10 assigned families.
 
 The port's own copy of `repro.models.config`, field for field (plain
-Python; the port imports nothing of the reference). Only the dense family
-runs in the port so far (`repro_torch.models.blocks`).
+Python; the port imports nothing of the reference).
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
-"""Shared layers: norms, MLPs, rotary embeddings (RoPE).
+"""Shared layers: norms, MLPs, rotary embeddings (RoPE and M-RoPE).
 
 The counterpart of `repro.models.layers`. Parameters live in
 `nn.ParameterDict`s keyed as the reference's dicts are (`wi`, `wg`, `wo`),
 weights in the reference's `(in, out)` layout, so `x @ w` as there. The
 compute dtype is the parameters' (bf16 by default, fp32 for deep kernel
-learning); norms and rotary angles run in fp32 and cast back. Qwen2-VL's
-M-RoPE waits for the other families (ROADMAP A2).
+learning); norms and rotary angles run in fp32 and cast back.
 """
 
 from __future__ import annotations
@@ -92,12 +91,9 @@ def rope_freqs(hd: int, theta: float, device=None):
                                          device=device) / hd))
 
 
-def apply_rope(x, positions, theta: float):
-    """x (B, S, H, hd); positions (B, S) int. Split-half rotation: the
+def _rotate(x, angles):
+    """Split-half rotation of x (B, S, H, hd) by angles (B, S, hd/2): the
     first and second halves of hd pair up (not interleaved lanes)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
-    angles = positions[..., None].to(torch.float32) * freqs   # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -105,9 +101,42 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_rope(x, positions, theta: float):
+    """x (B, S, H, hd); positions (B, S) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (hd/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple):
+    """Qwen2-VL multimodal RoPE. positions3 (3, B, S): (t, h, w) ids.
+
+    The hd/2 frequency slots are split into `sections` (sum = hd/2); each
+    section rotates by its own positional stream. Text tokens carry
+    t = h = w, reducing to plain RoPE.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to hd/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
+    # angles per stream (3, B, S, hd/2), then each section's slots from its
+    # own stream (slices, not an index tensor: nothing waits on the card)
+    angles = positions3[..., None].to(torch.float32) * freqs
+    ends = [sum(sections[:i + 1]) for i in range(3)]
+    return _rotate(x, torch.cat([angles[i, ..., end - n:end] for i, (n, end)
+                                 in enumerate(zip(sections, ends))], dim=-1))
+
+
 def positions_for(cfg, batch: int, seq: int, offset=0, device=None):
-    """Default position ids (B, S), int32 (M-RoPE's three streams wait for
-    the VLM family)."""
-    del cfg
+    """Default position ids (B, S) int32; M-RoPE gets three identical text
+    streams (3, B, S)."""
     pos = offset + torch.arange(seq, dtype=torch.int32, device=device)[None, :]
-    return pos.expand(batch, seq)
+    pos = pos.expand(batch, seq)
+    if cfg.mrope_sections:
+        return pos[None].expand(3, batch, seq)
+    return pos
+
+
+def apply_positional(cfg, x, positions):
+    if cfg.mrope_sections:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)

@@ -1,10 +1,10 @@
-"""The LM: embed -> blocks -> final norm -> tied logits (the dense family).
+"""The LM: embed -> blocks -> final norm -> tied logits, for every family.
 
 The counterpart of `repro.models.model`. `init_params` returns an
 `LM(nn.Module)` holding `embed` (V, D), `blocks` (a `ModuleList` of
 `Block`s, one per layer, where the reference stacks layer weights along a
-leading L axis) and `final_norm`; the default dtype is bf16 as in the
-reference, and deep kernel learning passes fp32. The reference's
+leading L axis), `final_norm`, and for the enc-dec family `enc_blocks` and
+`enc_norm`; the default dtype is bf16 as in the reference. The reference's
 `lax.scan` over layers becomes a plain loop, and its per-layer
 `jax.checkpoint` (`cfg.remat`) becomes `torch.utils.checkpoint` per block:
 the backward keeps each block's input and recomputes its internals.
@@ -15,10 +15,19 @@ bitwise identity, and an eager loop has nothing to hoist.
 Cross-entropy is computed in sequence chunks against the tied embedding,
 each chunk checkpointed, so the (B, S, V) logits tensor is never resident.
 
+Serving: `init_decode_state` allocates every layer's cache once, `prefill`
+runs the prompt and writes the caches, `decode_step` runs one token and
+writes one slot per layer. Caches are written in place (their tensors keep
+their storage), and the position `t` is a host int, so the decode loop
+never reads the card.
+
+Modality stubs: a batch may carry precomputed frame / patch embeddings;
+`embeds` alone replaces the tokens (audio), and with `embed_mask` it
+overrides the masked positions of the token embedding (vlm).
+
 Entry points run on the card unless the caller passes `device="cpu"`:
-`init_params` (and `LM`) raise without one. `count_params` builds the LM
-on the `meta` device, allocating nothing. Prefill and cached decode, the
-encoder stack and the families other than dense wait for ROADMAP A2.
+`init_params` (and `LM`) and `init_decode_state` raise without one.
+`count_params` builds the LM on the `meta` device, allocating nothing.
 """
 
 from __future__ import annotations
@@ -26,32 +35,42 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .blocks import Block, check_family
+from .attention import qkv_proj
+from .blocks import Block, init_layer_cache
 from .config import ArchConfig
-from .layers import apply_norm, norm_param, normal_init, positions_for
+from .layers import apply_norm, apply_positional, norm_param, normal_init, positions_for
+from .ssd import _causal_conv, _split_proj
 
 
 class LM(nn.Module):
     """Parameters named as the reference's tree: `embed`, `blocks.<i>.*`
-    (layer i of the reference's stacked `blocks`), `final_norm`."""
+    (layer i of the reference's stacked `blocks`), `final_norm`, and
+    `enc_blocks.<i>.*`, `enc_norm` for an enc-dec config."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator | None = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        check_family(cfg)
         dev = resolve_device(device)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         self.embed = nn.Parameter(normal_init((cfg.vocab, cfg.d_model), 0.02,
                                               generator, dtype, dev))
-        self.blocks = nn.ModuleList(Block(cfg, generator, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, generator, dtype, dev, cross=cfg.is_encdec)
+            for _ in range(cfg.n_layers))
         self.final_norm = norm_param(cfg.norm, cfg.d_model, dtype, dev)
+        if cfg.is_encdec:
+            enc_cfg = cfg._replace(family="encdec")
+            self.enc_blocks = nn.ModuleList(
+                Block(enc_cfg, generator, dtype, dev)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = norm_param(cfg.norm, cfg.d_model, dtype, dev)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -61,28 +80,59 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     return LM(cfg, generator, dtype, device)
 
 
+def _win_schedule(cfg) -> tuple:
+    """Per-layer window sizes (0 = full attention)."""
+    if not cfg.sliding_window:
+        return (0,) * cfg.n_layers
+    return tuple(0 if i in cfg.global_layers else cfg.sliding_window
+                 for i in range(cfg.n_layers))
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 
-def _run_stack(cfg, blocks, h, positions):
+def _embed_input(cfg, lm: LM, batch):
+    """tokens / embeds -> (B, S, D) input activations on the LM's device."""
+    dev = lm.embed.device
+    if "embeds" in batch and "tokens" not in batch:
+        return torch.as_tensor(batch["embeds"], device=dev).to(lm.embed.dtype)
+    h = lm.embed[torch.as_tensor(batch["tokens"], device=dev)]
+    if "embeds" in batch:  # vlm: patch embeddings override masked positions
+        mask = torch.as_tensor(batch["embed_mask"], device=dev)[..., None]
+        embeds = torch.as_tensor(batch["embeds"], device=dev).to(h.dtype)
+        h = torch.where(mask, embeds, h)
+    return h
+
+
+def _run_stack(cfg, blocks, h, positions, wins, enc_out=None, *, causal=True):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for block in blocks:
+    for block, win in zip(blocks, wins):
         if remat:
-            h, a = checkpoint(block, h, positions, use_reentrant=False)
+            h, a = checkpoint(block, cfg, h, positions, win, enc_out,
+                              causal=causal, use_reentrant=False)
         else:
-            h, a = block(h, positions)
+            h, a = block(cfg, h, positions, win, enc_out, causal=causal)
         aux = aux + a
     return h, aux
 
 
+def encode(cfg, lm: LM, enc_embeds):
+    """Encoder stack (seamless): full self-attention, no cache."""
+    x = torch.as_tensor(enc_embeds, device=lm.embed.device).to(lm.embed.dtype)
+    b, s, _ = x.shape
+    pos = positions_for(cfg, b, s, device=x.device)
+    h, _ = _run_stack(cfg._replace(family="encdec"), lm.enc_blocks, x, pos,
+                      (0,) * cfg.n_enc_layers, causal=False)
+    return apply_norm(cfg.norm, h, lm.enc_norm)
+
+
 def forward_hidden(cfg, lm: LM, batch, positions=None):
-    """Decoder hidden states (B, S, D) and the MoE aux loss for a
-    training/prefill batch ({"tokens": (B, S)}; the modality stubs'
-    "embeds" wait for their families), on the LM's device."""
-    h = lm.embed[torch.as_tensor(batch["tokens"], device=lm.embed.device)]
+    """Decoder hidden states (B, S, D) and the summed MoE aux loss for a
+    training / prefill batch, on the LM's device."""
+    h = _embed_input(cfg, lm, batch)
     b, s, _ = h.shape
     if positions is None:
         positions = batch.get("positions")
@@ -90,7 +140,8 @@ def forward_hidden(cfg, lm: LM, batch, positions=None):
         positions = positions_for(cfg, b, s, device=h.device)
     else:
         positions = torch.as_tensor(positions, device=h.device)
-    h, aux = _run_stack(cfg, lm.blocks, h, positions)
+    enc_out = encode(cfg, lm, batch["enc_embeds"]) if cfg.is_encdec else None
+    h, aux = _run_stack(cfg, lm.blocks, h, positions, _win_schedule(cfg), enc_out)
     return apply_norm(cfg.norm, h, lm.final_norm), aux
 
 
@@ -132,6 +183,95 @@ def train_loss(cfg: ArchConfig, lm: LM, batch):
     ce = _chunked_ce(cfg, lm.embed, h, targets)
     loss = ce + 0.01 * aux / max(cfg.n_layers, 1)
     return loss, {"ce": ce, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + cached decode
+# ---------------------------------------------------------------------------
+
+
+def _logits(lm: LM, h):
+    return h.to(torch.float32) @ lm.embed.to(torch.float32).T
+
+
+def init_decode_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+                      *, enc_len: int = 0, device=None) -> dict:
+    """{"caches": one `init_layer_cache` dict per layer, "t": 0} on `device`
+    (None = the card)."""
+    dev = resolve_device(device)
+    return {"caches": [init_layer_cache(cfg, batch, max_seq, dtype, dev,
+                                        enc_len=enc_len)
+                       for _ in range(cfg.n_layers)],
+            "t": 0}
+
+
+def _ssd_prefill_state(cfg, p, xn, ssm_cache):
+    """Write into `ssm_cache` the recurrent and conv state after the prompt
+    xn (B, S, D): the conv state is the last kernel - 1 inputs of the
+    conv, the recurrent state the decayed sum over the whole prompt, fp32."""
+    b, s, _ = xn.shape
+    proj = xn @ p["in_proj"]
+    _, xbc, dt = _split_proj(cfg, proj)
+    conv_tail = xbc[:, -(cfg.conv_kernel - 1):]
+    xbc_f = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    dinner, n, hh, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    xs = xbc_f[..., :dinner].reshape(b, s, hh, pd).to(torch.float32)
+    Bm = xbc_f[..., dinner:dinner + n].to(torch.float32)
+    dtv = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    la = torch.cumsum(-torch.exp(p["A_log"]) * dtv, dim=1)    # (B, S, H)
+    decay_to_end = torch.exp(la[:, -1:, :] - la)
+    w = xs * (dtv * decay_to_end)[..., None]                 # (B, S, H, P)
+    ssm_cache["conv"].copy_(conv_tail)
+    ssm_cache["ssm"].copy_(torch.einsum("bkn,bkhp->bhpn", Bm, w))
+
+
+@torch.no_grad()
+def prefill(cfg, lm: LM, state, batch):
+    """Run the prompt, fill the caches in place; (state, last-token logits
+    (B, V) fp32).
+
+    As the reference: the training forward plus cache writes, each layer's
+    K/V recomputed from its normed input into slots [0, S) of the cache;
+    for ssm / hybrid the final SSD state seeds the recurrence."""
+    h = _embed_input(cfg, lm, batch)
+    b, s, _ = h.shape
+    positions = positions_for(cfg, b, s, device=h.device)
+    enc_out = encode(cfg, lm, batch["enc_embeds"]) if cfg.is_encdec else None
+    for block, win, cache in zip(lm.blocks, _win_schedule(cfg), state["caches"]):
+        xn = apply_norm(cfg.norm, h, block.ln1)
+        if "k" in cache:
+            _, k, v = qkv_proj(block.attn, xn, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+            cache["k"][:, :s] = apply_positional(cfg, k, positions)
+            cache["v"][:, :s] = v
+        if "ck" in cache:
+            se = enc_out.shape[1]
+            shape = (b, se, cfg.n_kv_heads, cfg.hd)
+            cache["ck"].copy_((enc_out @ block.cross["wk"]).reshape(shape))
+            cache["cv"].copy_((enc_out @ block.cross["wv"]).reshape(shape))
+        if "ssm" in cache:
+            _ssd_prefill_state(cfg, block.ssm, xn, cache["ssm"])
+        h, _ = block(cfg, h, positions, win, enc_out)
+    h = apply_norm(cfg.norm, h, lm.final_norm)
+    state["t"] = s
+    return state, _logits(lm, h[:, -1])
+
+
+@torch.no_grad()
+def decode_step(cfg, lm: LM, state, token_or_embed):
+    """One decode step at position state["t"]: token_or_embed is (B,) int
+    tokens or (B, 1, D) embeddings. Writes the caches in place, advances
+    state["t"] (a host int); (state, logits (B, V) fp32)."""
+    x = torch.as_tensor(token_or_embed, device=lm.embed.device)
+    if x.ndim == 1:
+        x = lm.embed[x][:, None]
+    else:
+        x = x.to(lm.embed.dtype)
+    t = state["t"]
+    for block, win, cache in zip(lm.blocks, _win_schedule(cfg), state["caches"]):
+        x = block.decode(cfg, x, cache, t, win)
+    x = apply_norm(cfg.norm, x, lm.final_norm)
+    state["t"] = t + 1
+    return state, _logits(lm, x[:, 0])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of `repro`, and no silent CPU.
 
 * No file under src/repro_torch/ (the obs modules and the obs_report /
-  obs_diff launchers among them), and not chip_smoke.py, imports `jax` or
-  `repro` (an AST scan).
+  obs_diff launchers among them), not chip_smoke.py, the port's examples
+  or `scripts/serve_lm_profile.py`, imports `jax` or `repro` (an AST
+  scan).
 * With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
 * Entry points with no `device` raise when there is no card, rather than
   running on the CPU (the operators, the posterior fit and engine, the
@@ -36,7 +37,8 @@ from repro_torch.serve import PredictionEngine, fit_posterior
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "dkl_lm_features_torch.py"]
+    ROOT / "examples" / "dkl_lm_features_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py", ROOT / "scripts" / "serve_lm_profile.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set:

@@ -13,9 +13,10 @@ the reference on the CPU in fp32.
   attn_chunk 32 (two query chunks per layer), weights made by the
   reference's `init_params(cfg, PRNGKey(0), float32)` and carried across
   by `lm_params_from_numpy`.
-* Counts: `count_params` / `count_active_params` of the four full dense
+* Counts: `count_params` / `count_active_params` of all 10 full LM
   configs equal the reference's (`jax.eval_shape` there, the `meta` device
-  here); a family the port does not have raises.
+  here); an unknown family raises. The other families' parity tests are
+  `tests/test_torch_lm_*.py`.
 
 Tolerances (the conformance ones, `tests/test_conformance.py:61`): arrays
 within 2e-4 of their largest entry, scalars within 3e-5 relative.
@@ -50,8 +51,6 @@ from repro_torch.models.attention import _repeat_kv, attention
 MAT_TOL = 2e-4
 VAL_TOL = 3e-5
 LM_ARCHS = tuple(a for a in ref_registry.ARCH_IDS if a != "gp-exact-1m")
-DENSE = ("smollm-360m", "olmo-1b", "mistral-large-123b", "deepseek-coder-33b")
-OTHER = tuple(a for a in LM_ARCHS if a not in DENSE)
 REDUCED = ("smollm-360m", "olmo-1b")
 
 
@@ -87,19 +86,18 @@ def test_config_matches_reference(arch):
                 == ref.reduced(n_layers=3, d_model=32)._asdict())
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_counts_match_reference(arch):
     cfg = get_arch(arch)
     assert count_params(cfg) == ref_count(ref_get_arch(arch))
     assert count_active_params(cfg) == ref_count_active(ref_get_arch(arch))
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise(arch):
-    cfg = get_arch(arch)
-    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
-        LM(cfg.reduced(), dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+def test_unknown_family_raises():
+    cfg = get_arch("smollm-360m").reduced(family="rnn")
+    with pytest.raises(ValueError, match="'rnn'"):
+        LM(cfg, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
         count_params(cfg)
 
 
