@@ -231,7 +231,41 @@ caught and skipped):
    31; (d) at the published width but depth 2, `forward_hidden` on 2 x 32
    tokens on the card within 2e-4 of max|h| of the CPU's, same weights.
    B1-B4's launches over the phase are printed (none on this path).
-13. The phases' seconds beside the card's name and power limit (again, so
+13. The dry run's counter (`repro_torch.launch.dryrun`) on the card:
+   (1) smollm-360m at its published width and depth, bf16 weights from a
+   seeded generator, one train step (`launch.steps.make_train_step`:
+   forward, backward, clip, AdamW) at batch 4 x 1024 with no mesh
+   installed, counted under `FakeTensorMode` on `cuda` and then for real
+   under the same counter; (2) the GP predict cell (the mean-cache solve,
+   `partitioned`, 20 fixed CG iterations) at n = 2^15 on a one-rank NCCL
+   group, counted for real and, in a subprocess on a `fake` group of world
+   1, on fake tensors. Gates: the FLOPs and bytes of the fake and the real
+   count are equal (the same ops); the counted peak of (1) lies within 15%
+   of `torch.cuda.max_memory_allocated` above the step's arguments.
+   Printed: the counts, the collectives of both (the only part that may
+   differ), the profiler's summed kernel time and the achieved TFLOP/s,
+   and `t_compute` / `t_memory` of `roofline.analyze` (H100 SXM datasheet
+   peaks). (3) `python -m repro_torch.launch.dryrun --arch
+   smollm-360m,gp-exact-1m` on the (16, 16) fake mesh, started in a
+   process of its own at the phase's start and collected at its end (it
+   counts on the host's cores while (1) and (2) run, whose times are the
+   card's own; phase 14's host-bound steps run with the host to
+   themselves). Gate: every cell `ok`, long_500k `skipped`; each cell's
+   roofline row and seconds printed.
+14. The LM trainer: `launch.train`'s `main` in-process, `--full`, bf16
+   weights and fp32 moments. smollm-360m at batch 8 x 1024: 3 steps with a
+   checkpoint at 3, then a second call with the same `--ckpt` that resumes
+   at step 3 and trains to 6 (gates: every loss finite, the mean of steps
+   5-6 below step 1, the restored parameters equal the step-3 checkpoint
+   bit for bit); a SIGTERM raised from a step hook during step 2 (gate: a
+   final checkpoint at step 2, the loop stopped); a step function that
+   returns a NaN loss once (gate: skipped once, the next step given the
+   same state bit for bit). mamba2-130m at 8 x 1024 for 3 steps (the SSD
+   backward; gate: finite losses). Printed: tokens/s at the median step
+   and peak GiB per model beside the card's name and power limit, and
+   each model's step at 8 x 1024 timed on the host clock beside its
+   profiled kernel time (the card's busy share of a step).
+15. The phases' seconds beside the card's name and power limit (again, so
    the end of the output holds them), the `kernels` JSON line, then the
    last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -251,6 +285,7 @@ the bytes at 3.35 TB/s.
 
 from __future__ import annotations
 
+import atexit
 import functools
 import json
 import math
@@ -2399,6 +2434,423 @@ def phase_serve_lm() -> dict:
     return {"rows": rows, "launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run's counter on the card
+# ---------------------------------------------------------------------------
+
+COUNT_ARCH = "smollm-360m"       # phase 13: published width and depth, bf16
+COUNT_SHAPE = (4, 1024)          # one train step: batch x seq
+COUNT_GP_N = 1 << 15             # the GP predict cell, partitioned
+COUNT_GP_ITERS = 20              # fixed CG trips
+COUNT_MEM_TOL = 0.15             # counted peak vs max_memory_allocated
+DRYRUN_ARCHS = "smollm-360m,gp-exact-1m"
+# phase 14: (arch, batch, seq, steps) at published width and depth
+TRAIN_LM = (("smollm-360m", 8, 1024, 6), ("mamba2-130m", 8, 1024, 3))
+
+
+def _device_ms(run) -> float:
+    """Summed device time (ms) of the kernels `run()` launches, from
+    torch.profiler (CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def _count_row(tag, fake, real, peak, model_flops, dtype, ms) -> dict:
+    from repro_torch.launch import roofline as rl
+
+    cost = {"flops": real["flops"], "bytes accessed": real["bytes"]}
+    roof = rl.analyze(cost, real["coll"], model_flops, 1, compute_dtype=dtype)
+    row = {"tag": tag, "flops": real["flops"], "bytes": real["bytes"],
+           "fake_flops": fake["flops"], "fake_bytes": fake["bytes"],
+           "fake_temp_bytes": fake["memory"]["temp_bytes"],
+           "real_peak_bytes": peak, "kernel_ms": ms,
+           "tflops": real["flops"] / (ms * 1e-3) / 1e12 if ms else float("nan"),
+           "t_compute_ms": roof.t_compute * 1e3, "t_memory_ms": roof.t_memory * 1e3,
+           "useful_ratio": roof.useful_ratio,
+           "fake_coll": fake["coll"]["counts"], "real_coll": real["coll"]["counts"]}
+    log(f"[count] {tag}: {real['flops']:.4e} FLOPs, {real['bytes']:.4e} bytes "
+        f"(fake {fake['flops']:.4e}, {fake['bytes']:.4e}); kernels "
+        f"{ms:.2f} ms -> {row['tflops']:.1f} TFLOP/s; t_compute "
+        f"{row['t_compute_ms']:.2f} ms, t_memory {row['t_memory_ms']:.2f} ms "
+        f"(roofline at H100 SXM datasheet peaks); useful {roof.useful_ratio:.2f}; "
+        f"peak {peak / 2**30:.2f} GiB real, {fake['memory']['temp_bytes'] / 2**30:.2f} "
+        f"GiB counted; collectives fake {fake['coll']['counts']} real "
+        f"{real['coll']['counts']}; {card_and_power_limit()}")
+    if fake["flops"] != real["flops"] or fake["bytes"] != real["bytes"]:
+        raise AssertionError(f"[count] {tag}: fake and real counts differ")
+    return row
+
+
+def _count_lm_step() -> dict:
+    """Phase 13.1: smollm-360m's train step counted on fake and on real
+    tensors, no mesh installed (shardctx is the identity)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.specs import Cell
+    from repro_torch.launch.steps import TrainState, init_train_state, make_train_step
+    from repro_torch.models import LM, get_arch
+
+    cfg = get_arch(COUNT_ARCH)
+    b, s = COUNT_SHAPE
+    step = make_train_step(cfg, None)
+    rng = np.random.default_rng(DATA_SEED)
+    tok = rng.integers(0, cfg.vocab, size=(b, s + 1)).astype(np.int32)
+    with FakeTensorMode():
+        params = {k: torch.empty(p.shape, dtype=torch.bfloat16, device=DEV)
+                  for k, p in LM(cfg, device="meta").named_parameters()}
+        mu = {k: torch.zeros(p.shape, dtype=torch.float32, device=DEV)
+              for k, p in params.items()}
+        st = TrainState(params, mu, {k: v.clone() for k, v in mu.items()},
+                        torch.zeros((), dtype=torch.int32, device=DEV))
+        fb = {"tokens": torch.empty((b, s), dtype=torch.int32, device=DEV),
+              "targets": torch.empty((b, s), dtype=torch.int32, device=DEV)}
+        fake = count_step(lambda: step(st, fb), external=(st, fb))
+    del st, fb, params, mu
+    state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(DATA_SEED),
+                             device=DEV)
+    batch = {"tokens": torch.as_tensor(tok[:, :-1], device=DEV),
+             "targets": torch.as_tensor(tok[:, 1:], device=DEV)}
+    step(state, batch)                      # warm-up: cuBLAS handles, caches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    real = count_step(lambda: step(state, batch), external=(state, batch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = _device_ms(lambda: step(state, batch))
+    mf = rl.model_flops_for(cfg, Cell(cfg.name, "train", "train", b, s))
+    row = _count_row(f"{COUNT_ARCH} train {b}x{s} bf16", fake, real, peak, mf,
+                     "bf16", ms)
+    rel = abs(fake["memory"]["temp_bytes"] - peak) / peak
+    log(f"[count] counted peak vs max_memory_allocated: {rel:.3f} relative")
+    if rel > COUNT_MEM_TOL:
+        raise AssertionError(f"[count] counted peak off by {rel:.3f}")
+    row["mem_rel"] = rel
+    return row
+
+
+_FAKE_GP_COUNT = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs.gp_exact_1m import CONFIG
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh, init_fake_world
+init_fake_world(1)
+mesh = Mesh((1, 1), ("data", "model"), device=torch.device(sys.argv[2]))
+gp = CONFIG._replace(n=int(sys.argv[3]), backend="partitioned")
+r = dryrun.count_gp_cell(gp, "gp_predict", mesh, int(sys.argv[4]))
+print(json.dumps({k: r[k] for k in ("flops", "bytes", "coll", "memory")}))
+"""
+
+
+def _count_gp_predict() -> dict:
+    """Phase 13.2: the GP predict cell (the mean-cache solve, fixed trips)
+    at n = 2^15 on a one-rank NCCL group, counted for real; the fake count
+    runs in a subprocess on a `fake` group of world 1 (same ops)."""
+    from repro_torch.configs.gp_exact_1m import CONFIG
+    from repro_torch.core.distributed import shard_vector
+    from repro_torch.core.kernels_math import init_params
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import gp_cells
+    from repro_torch.launch.steps import make_gp_predict_setup
+
+    out = subprocess.run(
+        [sys.executable, "-c", _FAKE_GP_COUNT, os.path.join(HERE, "src"), DEV,
+         str(COUNT_GP_N), str(COUNT_GP_ITERS)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, OMP_NUM_THREADS="4"))
+    if out.returncode:
+        raise RuntimeError(f"[count] fake GP count failed:\n{out.stderr[-3000:]}")
+    fake = json.loads(out.stdout.strip().splitlines()[-1])
+
+    gp = CONFIG._replace(n=COUNT_GP_N, backend="partitioned",
+                         pred_cg_iters=COUNT_GP_ITERS)
+    mesh = make_host_mesh(device=DEV)       # a one-rank NCCL group
+    solve, geom = make_gp_predict_setup(gp, mesh, fixed_iters=True)
+    rng = np.random.default_rng(DATA_SEED)
+    X = torch.as_tensor(rng.normal(size=(gp.n, gp.d)), dtype=torch.float32, device=DEV)
+    y = shard_vector(mesh, geom, torch.as_tensor(rng.normal(size=gp.n),
+                                                 dtype=torch.float32))
+    params = init_params(noise=0.5, device=DEV)
+    solve(X, y, params)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    real = count_step(lambda: solve(X, y, params), external=(X, y, params))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = _device_ms(lambda: solve(X, y, params))
+    cell = [c for c in gp_cells(gp) if c.kind == "gp_predict"][0]
+    return _count_row(f"gp predict n={gp.n} {gp.pred_cg_iters} CG fp32", fake,
+                      real, peak, rl.model_flops_for(gp, cell), "float32", ms)
+
+
+def _start_dryrun():
+    """Phase 13.3, started: `python -m repro_torch.launch.dryrun --arch
+    smollm-360m,gp-exact-1m` on the (16, 16) fake mesh, in a process of its
+    own (the fake group of 256 ranks must be its only group). It counts on
+    the host's cores while the card runs phases 13.1-13.2."""
+    out_dir = os.path.join(HERE, "build", "dryrun_torch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    logs = [open(os.path.join(HERE, "build", f"dryrun_torch.{k}"), "w")
+            for k in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCHS, "--out", out_dir],
+        stdout=logs[0], stderr=logs[1],
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                 OMP_NUM_THREADS="2"))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "out_dir": out_dir, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def _dryrun_cells(run) -> list:
+    """Phase 13.3, collected: every cell `ok` but long_500k (`skipped`);
+    each cell's roofline row and seconds printed."""
+    from repro_torch.launch import roofline as rl
+
+    try:
+        rc = run["proc"].wait(timeout=900)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+        for f in run["logs"]:
+            f.close()
+    seconds = time.perf_counter() - run["t0"]
+    out_dir = run["out_dir"]
+    if rc:
+        errors = []
+        for name in sorted(os.listdir(out_dir)):
+            with open(os.path.join(out_dir, name)) as f:
+                r = json.load(f)
+            if r["status"] == "error":
+                errors.append(f"{name}:\n{r['traceback'][-4000:]}")
+        with open(run["logs"][0].name) as f:
+            raise RuntimeError(f"[dryrun] failed:\n{f.read()[-3000:]}\n"
+                               + "\n".join(errors))
+    rows = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            r = json.load(f)
+        cell = r["cell"]
+        if r["status"] == "skipped":
+            if cell["shape"] != "long_500k":
+                raise AssertionError(f"[dryrun] {name} skipped")
+            log(f"[dryrun] {cell['arch']} {cell['shape']}: skipped ({r['reason']})")
+            rows.append({"cell": cell, "status": "skipped"})
+            continue
+        if r["status"] != "ok":
+            raise AssertionError(f"[dryrun] {name}: {r['status']}")
+        roof = rl.Roofline(**r["roofline"])
+        log(f"[dryrun] {rl.format_row(cell['arch'], cell['shape'], r['mesh'], roof)}"
+            f" {r['compile_s']} s")
+        rows.append({"cell": cell, "status": "ok", "roofline": r["roofline"],
+                     "seconds": r["compile_s"]})
+    archs = DRYRUN_ARCHS.split(",")
+    want = sum(2 if a == "gp-exact-1m" else 4 for a in archs)  # GP: train, predict
+    if len(rows) != want:
+        raise AssertionError(f"[dryrun] {len(rows)} cells, {want} expected")
+    log(f"[dryrun] {len(rows)} cells in {seconds:.1f} s on the card's host "
+        f"(beside phases 13.1-13.2); {card_and_power_limit()}")
+    return rows
+
+
+def phase_count() -> dict:
+    """Phase 13: the dry run's counter on the card (see the module
+    docstring); the dry run's own process runs beside 13.1-13.2 and is
+    collected before the phase ends, so that phase 14 runs alone."""
+    t_phase = time.perf_counter()
+    dry = _start_dryrun()
+    lm = _count_lm_step()
+    gp = _count_gp_predict()
+    log(f"[count] phases 13.1-13.2 in {time.perf_counter() - t_phase:.1f} s "
+        f"on {card_and_power_limit()}")
+    cells = _dryrun_cells(dry)
+    seconds = time.perf_counter() - t_phase
+    return {"lm": lm, "gp": gp, "dryrun": cells, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the LM trainer
+# ---------------------------------------------------------------------------
+
+
+def _train_argv(arch, b, s, steps, ckpt, every) -> list:
+    return ["--arch", arch, "--full", "--batch", str(b), "--seq", str(s),
+            "--steps", str(steps), "--ckpt", ckpt, "--ckpt-every", str(every),
+            "--log-every", "1", "--lr", "1e-3", "--device", DEV]
+
+
+def _train_lm_smollm(arch, b, s, steps, root) -> dict:
+    """Phase 14.1: train, resume, SIGTERM and the NaN skip on the launcher."""
+    import signal
+
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.checkpoint import (
+        CheckpointManager, load_checkpoint, tree_from_numpy)
+
+    half = steps // 2
+    ckpt = os.path.join(root, "run")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first = train_main(_train_argv(arch, b, s, half, ckpt, half))
+    peak = torch.cuda.max_memory_allocated()
+    seen = []
+
+    def spy(step_fn):
+        def f(state, batch):
+            if not seen:
+                seen.append({k: v.clone() for k, v in state.params.items()})
+            return step_fn(state, batch)
+        return f
+
+    second = train_main(_train_argv(arch, b, s, steps, ckpt, half), wrap_step=spy)
+    name = first["ckpt_dir"]
+    tree, _, _ = load_checkpoint(name, first["state"], step=half)
+    saved = tree_from_numpy(first["state"], tree).params
+    restored_equal = all(torch.equal(v.view(torch.int16), saved[k].view(torch.int16))
+                         for k, v in seen[0].items())
+    losses = first["losses"] + second["losses"]
+    log(f"[train-lm] {arch}: losses {[round(x, 4) for x in losses]}; resumed "
+        f"at step {half}, restored parameters equal the step-{half} checkpoint "
+        f"bit for bit: {restored_equal}")
+    if not (second["steps_run"] == steps - half and restored_equal):
+        raise AssertionError("[train-lm] resume gate failed")
+    if not all(math.isfinite(x) for x in losses) or \
+            not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"[train-lm] loss gate failed: {losses}")
+
+    # SIGTERM from a step hook while step 2 runs: a final checkpoint at 2
+    calls = []
+
+    def term(step_fn):
+        def f(state, batch):
+            calls.append(int(state.step))
+            if int(state.step) == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step_fn(state, batch)
+        return f
+
+    ck_term = os.path.join(root, "term")
+    res = train_main(_train_argv(arch, b, s, steps, ck_term, 100), wrap_step=term)
+    latest = CheckpointManager(os.path.join(ck_term, os.path.basename(name))).latest_step()
+    log(f"[train-lm] SIGTERM during step 2: {res['steps_run']} steps run, "
+        f"final checkpoint at step {latest}")
+    if not (res["steps_run"] == 2 and latest == 2):
+        raise AssertionError("[train-lm] SIGTERM gate failed")
+
+    # a step that returns a NaN loss once is skipped; the state is kept
+    given = []
+
+    def nan_once(step_fn):
+        def f(state, batch):
+            given.append(state)
+            new, metrics = step_fn(state, batch)
+            if len(given) == 2:
+                metrics = dict(metrics, loss=torch.full_like(metrics["loss"],
+                                                             float("nan")))
+            return new, metrics
+        return f
+
+    res = train_main(_train_argv(arch, b, s, 2, os.path.join(root, "nan"), 100),
+                     wrap_step=nan_once)
+    kept = given[2] is given[1] and all(
+        torch.equal(given[2].params[k].view(torch.int16),
+                    given[1].params[k].view(torch.int16)) for k in given[1].params)
+    log(f"[train-lm] NaN loss once: {res['skipped']} skipped, state kept bit "
+        f"for bit: {kept}")
+    if not (res["skipped"] == 1 and res["steps_run"] == 2 and kept):
+        raise AssertionError("[train-lm] NaN-skip gate failed")
+    return {"arch": arch, "losses": losses, "tokens_per_s": second["tokens_per_s"],
+            "peak_gib": peak / 2**30, "batch": b, "seq": s}
+
+
+def _step_split(arch, b, s) -> dict:
+    """One train step of `arch` at b x s, as the launcher runs it (bf16
+    weights, fp32 moments, the synthetic stream's first batch): its wall
+    time on the host clock (synchronized; the median of 3 steps after a
+    warm-up step) beside the profiler's summed kernel time of one more
+    step (a device time, steady from step to step)."""
+    from repro_torch.data.tokens import _synth_stream
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import get_arch
+
+    cfg = get_arch(arch)
+    step = make_train_step(cfg, None, lr=1e-3)
+    state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(DATA_SEED),
+                             device=DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in
+             next(_synth_stream(cfg.vocab, b, s, DATA_SEED)).items()}
+    step(state, batch)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    kern = _device_ms(lambda: step(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+    wall = float(np.median(walls))
+    log(f"[train-lm] {arch} step at {b} x {s}: {wall:.1f} ms wall, {kern:.1f} ms "
+        f"of kernels (the card busy {100 * kern / wall:.1f}%); "
+        f"{card_and_power_limit()}")
+    return {"wall_ms": wall, "kernel_ms": kern}
+
+
+def phase_train_lm() -> dict:
+    """Phase 14: `launch.train`'s LM path in-process (see the module
+    docstring)."""
+    from repro_torch.launch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    rows = []
+    try:
+        arch, b, s, steps = TRAIN_LM[0]
+        rows.append(_train_lm_smollm(arch, b, s, steps, root))
+        arch, b, s, steps = TRAIN_LM[1]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_main(_train_argv(arch, b, s, steps,
+                                     os.path.join(root, arch), 100))
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in res["losses"]) or \
+                len(res["losses"]) != steps:
+            raise AssertionError(f"[train-lm] {arch}: {res['losses']}")
+        rows.append({"arch": arch, "losses": res["losses"],
+                     "tokens_per_s": res["tokens_per_s"],
+                     "peak_gib": peak / 2**30, "batch": b, "seq": s})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in rows:
+        r.update(_step_split(r["arch"], r["batch"], r["seq"]))
+    card = card_and_power_limit()
+    for r in rows:
+        log(f"[train-lm] {r['arch']} --full (bf16 weights, fp32 moments), batch "
+            f"{r['batch']} x seq {r['seq']}: {r['tokens_per_s']:,.0f} tokens/s, "
+            f"peak {r['peak_gib']:.2f} GiB; {card}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[train-lm] phase 14 in {seconds:.1f} s on {card}")
+    return {"rows": rows, "seconds": seconds}
+
+
 def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -2439,8 +2891,12 @@ def main() -> None:
     shutil.rmtree(dist_run["store_dir"], ignore_errors=True)
     dkl = phase_dkl()
     serve_lm = phase_serve_lm()
+    count = phase_count()
+    train_lm = phase_train_lm()
+    dist.destroy_process_group()
     log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s (phase 12 "
-        f"{serve_lm['seconds']:.1f} s) on {card_and_power_limit()}")
+        f"{serve_lm['seconds']:.1f} s, phase 13 {count['seconds']:.1f} s, "
+        f"phase 14 {train_lm['seconds']:.1f} s) on {card_and_power_limit()}")
 
     kernels = []
     sources = {"kmvm": ("src/repro_torch/kernels/csrc/kmvm.cu",
@@ -2512,6 +2968,8 @@ def main() -> None:
         "shape": row["shape"], "timings": b3["rows"]})
     log(f"[table1] {json.dumps(table1['rows'])}")
     log(f"[serve-lm] {json.dumps(serve_lm['rows'])}")
+    log(f"[count] {json.dumps({'lm': count['lm'], 'gp': count['gp']})}")
+    log(f"[train-lm] {json.dumps(train_lm['rows'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -511,15 +511,18 @@ def dist_pivoted_cholesky(geom: DistGeometry, kernel, X: torch.Tensor,
     L = torch.zeros((geom.n_local, rank), dtype=X.dtype, device=X.device)
     d = X.shape[1]
     for i in range(rank):
-        local_arg = torch.argmax(diag)
-        local_max = diag[local_arg]
+        # a (1,) index tensor, not a 0-d one: indexing by a 0-d tensor reads
+        # it on the host (a sync per pivot on the card)
+        local_arg = torch.argmax(diag).reshape(1)
+        local_max = diag[local_arg][0]
+        arg_gidx = gidx[local_arg][0]
         global_max = _all_reduce(mesh, axes, local_max, dist.ReduceOp.MAX)
-        cand = torch.where(local_max >= global_max, gidx[local_arg],
-                           torch.full_like(gidx[local_arg], geom.n_padded))
+        cand = torch.where(local_max >= global_max, arg_gidx,
+                           torch.full_like(arg_gidx, geom.n_padded))
         pivot_gidx = _all_reduce(mesh, axes, cand, dist.ReduceOp.MIN)
-        ownf = (gidx[local_arg] == pivot_gidx).to(X.dtype)
-        both = _all_reduce(mesh, axes, ownf * torch.cat([x_chunk[local_arg],
-                                                         L[local_arg]]))
+        ownf = (arg_gidx == pivot_gidx).to(X.dtype)
+        both = _all_reduce(mesh, axes, ownf * torch.cat([x_chunk[local_arg][0],
+                                                         L[local_arg][0]]))
         xp, lp = both[:d], both[d:]
         pivot_val = torch.clamp(global_max, min=1e-12)
 
@@ -766,31 +769,37 @@ def _dist_mll_forward(geom, cfg, X, y_loc, params, generator, *,
     return (value, aux), (u_y, U, pinv_z)
 
 
-def dist_mll_backward(geom, cfg, X, params, u_y, U, pinv_z, g_value):
+def dist_mll_backward(geom, cfg, X, params, u_y, U, pinv_z, g_value, *,
+                      need_x: bool = True):
     """This rank's (g_X, g_y, g_params) of g_value * mll: g_params and g_X
     all-reduced (replicated), g_y this rank's chunk.
 
     `ShardedOperator.quad_form_grads` returns per-rank partials (explicit
     blockwise tiles, not autograd through the distributed forward), so the
     shared Eq. 2 assembly yields partials too, summed here in ONE
-    all-reduce. The backward contracts in full precision."""
+    all-reduce. The backward contracts in full precision. With `need_x`
+    False, g_X (n x d, the all-reduce's bulk) is left out of it and comes
+    back None, as XLA drops the reference's unused g_X psum."""
     bwd_cfg = cfg.operator_config(geom)._replace(compute_dtype=None)
     g_params, g_X = operator_mll_quad_grads(
         lambda x: ShardedOperator(bwd_cfg, x, params), X, u_y, U, pinv_z)
     leaves = params_leaves(g_params)
-    parts = [a.reshape(-1) for a in leaves] + [g_X.reshape(-1),
-                                               torch.sum(u_y).reshape(1)]
+    parts = [a.reshape(-1) for a in leaves]
+    if need_x:
+        parts.append(g_X.reshape(-1))
+    parts.append(torch.sum(u_y).reshape(1))
     total = _psum_all(geom, torch.cat([p.to(g_X.dtype) for p in parts]))
     out, off = [], 0
     for a in leaves:
         out.append(total[off:off + a.numel()].reshape(a.shape).to(a.dtype))
         off += a.numel()
-    g_X = total[off:off + g_X.numel()].reshape(g_X.shape)
+    g_X = g_value * total[off:off + g_X.numel()].reshape(g_X.shape) \
+        if need_x else None
     sum_uy = total[-1]
     g_params = params_unflatten(g_params, out)
     g_params = g_params._replace(raw_mean=g_params.raw_mean + sum_uy)
     g_params = params_map(lambda a: g_value * a, g_params)
-    return g_value * g_X, g_value * (-u_y), g_params
+    return g_X, g_value * (-u_y), g_params
 
 
 class _DistMLL(torch.autograd.Function):
@@ -812,7 +821,8 @@ class _DistMLL(torch.autograd.Function):
     def backward(ctx, g_value, *_):
         X, u_y, U, pinv_z = ctx.saved_tensors
         g_X, g_y, g_params = dist_mll_backward(
-            ctx.geom, ctx.cfg, X, ctx.params, u_y, U, pinv_z, g_value)
+            ctx.geom, ctx.cfg, X, ctx.params, u_y, U, pinv_z, g_value,
+            need_x=ctx.needs_input_grad[5])
         return (None,) * 5 + (g_X, g_y, *params_leaves(g_params))
 
 
@@ -906,7 +916,7 @@ def make_warm_mll_step(mesh, geom: DistGeometry, cfg: DistMLLConfig, *,
             cg_tol=cfg.cg_tol, pcg_method=cfg.pcg_method,
             precond=precond, probes=probes, x0=x0, logdet_carry=logdet_carry)
         _, _, g_params = dist_mll_backward(geom, cfg, X, params, u_y, U,
-                                           pinv_z, g_value)
+                                           pinv_z, g_value, need_x=False)
         state = DistSolveState(solutions=st.solutions, probes=st.probes,
                                precond=precond.pre, logdet=aux.logdet)
         return -value / geom.n, aux, g_params, state
@@ -934,10 +944,12 @@ def make_warm_mll_step(mesh, geom: DistGeometry, cfg: DistMLLConfig, *,
 
 
 def make_mean_cache_solve(mesh, geom: DistGeometry, cfg: DistMLLConfig, *,
-                          tol: float = 0.01, max_iters: int = 400):
+                          tol: float = 0.01, max_iters: int = 400,
+                          min_iters: int = 10):
     """(X, y_loc, params) -> (a (n,), rel_residual): the tight-tolerance
     solve a = K_hat^{-1} (y - mu), gathered to every rank (prediction then
-    runs on one device, per the paper)."""
+    runs on one device, per the paper). `min_iters = max_iters` runs a
+    fixed trip count (the dry run's cells)."""
     _check_mesh(mesh, geom)
 
     def fn(X, y_loc, params):
@@ -947,7 +959,7 @@ def make_mean_cache_solve(mesh, geom: DistGeometry, cfg: DistMLLConfig, *,
             yc = yc * op.local_mask
         precond = op.preconditioner(cfg.precond_rank)
         res = pcg(op, yc[:, None], precond.solve, max_iters=max_iters,
-                  min_iters=10, tol=tol)
+                  min_iters=min_iters, tol=tol)
         a_full = _all_gather(mesh, geom.all_axes, res.solution[:, 0])
         return a_full[:geom.n], res.rel_residual
 

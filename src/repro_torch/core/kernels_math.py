@@ -483,6 +483,14 @@ def canonicalize_kernel(kernel, params) -> tuple:
     return spec, params
 
 
+def lengthscale(params: GPParams):
+    return softplus(params.raw_lengthscale)
+
+
+def outputscale(params: GPParams):
+    return softplus(params.raw_outputscale)
+
+
 def noise_variance(params, noise_floor: float = 1e-4):
     """sigma^2 with a floor; works on GPParams and KernelParams alike."""
     return softplus(params.raw_noise) + noise_floor
@@ -694,3 +702,18 @@ def normalize_components(spec, kparams: KernelParams) -> tuple:
     if used != len(kparams.nodes):
         raise ValueError(f"spec used {used} of {len(kparams.nodes)} nodes")
     return tuple(terms)
+
+
+def num_components(kernel) -> int:
+    """Number of additive components the spec normalizes to (static)."""
+    spec = as_spec(kernel) if isinstance(kernel, str) else kernel
+    if isinstance(spec, Leaf):
+        return 1
+    if isinstance(spec, Scale):
+        return num_components(spec.inner)
+    if isinstance(spec, Sum):
+        return sum(num_components(t) for t in spec.terms)
+    out = 1
+    for f in spec.factors:
+        out *= num_components(f)
+    return out

@@ -55,6 +55,16 @@ def map_row_chunks(fn, Z: torch.Tensor, chunk_size: int):
     return torch.cat(outs, dim=0)[:n]
 
 
+def default_row_block(n: int, d: int, t: int, hbm_budget_bytes: int = 2 << 30) -> int:
+    """A row block whose transient (rb, n) fp32 slab fits the budget (2 GiB
+    by default, of the card's memory), clamped to [128, 8192] and rounded
+    to a multiple of 128, as the reference's."""
+    del d, t
+    rb = hbm_budget_bytes // max(n * 4, 1)
+    rb = max(128, min(int(rb), 8192))
+    return (rb // 128) * 128
+
+
 def _block_kmvm_dense(kernel, Xb, X, V, params):
     """One row-partition's contribution: K(Xb, X) @ V, slab materialized."""
     return kernel_matrix(kernel, Xb, X, params) @ V
@@ -98,6 +108,26 @@ def kmvm(
     if add_noise:
         out = out + noise_variance(params, noise_floor) * V
     return out[:, 0] if squeeze else out
+
+
+def quad_form(kernel, X: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+              params, *, row_block: int = 1024, add_noise: bool = True,
+              noise_floor: float = 1e-4) -> torch.Tensor:
+    """sum_j a_j^T K_hat b_j for column-paired A, B of shape (n, t) (or
+    (n,)): the differentiable surface the BBMM backward contracts against,
+    O(row_block * n) memory."""
+    if A.ndim == 1:
+        A = A[:, None]
+    if B.ndim == 1:
+        B = B[:, None]
+    KB = kmvm(kernel, X, B, params, row_block=row_block, add_noise=add_noise,
+              noise_floor=noise_floor)
+    return torch.sum(A * KB)
+
+
+def kernel_rows(kernel, X: torch.Tensor, idx: torch.Tensor, params) -> torch.Tensor:
+    """K(X[idx], X): O(|idx| * n)."""
+    return kernel_matrix(kernel, X[idx], X, params)
 
 
 def block_quad_grads(kernel, params, leaves, Xb, Xc, Ab, Vc):

@@ -272,3 +272,14 @@ def _pcg_pipelined(mvm, B, precond_solve, max_iters, min_iters, tol, allreduce,
             break
     return _finish(x, r, b_norm2, rz0, ys, max_iters, allreduce,
                    len(ys) + 1)
+
+
+def solve_tolerance_iters(tol: float) -> int:
+    """Heuristic iteration cap for a requested tolerance (paper Sec. 3)."""
+    if tol >= 1.0:
+        return 20
+    if tol >= 0.1:
+        return 50
+    if tol >= 0.01:
+        return 100
+    return 200

@@ -18,9 +18,22 @@ of T, whose log contributes 0.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .pcg import pcg
+
+
+class SLQAux(NamedTuple):
+    """Probe accounting of the standalone estimator (`slq_logdet(...,
+    with_aux=True)`): per-probe CG iterations and final residuals, as
+    tensors on the operator's device, for the caller to read after the
+    solve."""
+
+    iterations: torch.Tensor    # (t,) CG iterations applied per probe
+    rel_residual: torch.Tensor  # (t,) final relative residual per probe
+    num_probes: int
 
 
 def lanczos_tridiag_from_coeffs(alphas: torch.Tensor, betas: torch.Tensor,
@@ -59,16 +72,21 @@ def slq_logdet_correction(alphas, betas, active, probe_rz0) -> torch.Tensor:
 def slq_logdet(op, generator: torch.Generator | None = None, *,
                num_probes: int = 8, precond_rank: int = 100,
                max_iters: int = 100, tol: float = 1e-8,
-               method: str = "standard") -> torch.Tensor:
+               method: str = "standard", with_aux: bool = False):
     """Standalone SLQ estimate of logdet(K_hat) from a KernelOperator: one
     mBCG solve on probes z ~ N(0, P) drawn from `generator`, plus
-    logdet(P)."""
+    logdet(P). With `with_aux=True`, (logdet, SLQAux)."""
     precond = op.preconditioner(precond_rank)
     probes = precond.sample(generator, num_probes, dtype=op.dtype)
     res = pcg(op, probes, precond.solve, max_iters=max_iters, min_iters=3,
               tol=tol, method=method)
-    return precond.logdet() + slq_logdet_correction(
+    logdet = precond.logdet() + slq_logdet_correction(
         res.alphas, res.betas, res.active, res.rz0)
+    if with_aux:
+        return logdet, SLQAux(iterations=res.iterations,
+                              rel_residual=res.rel_residual,
+                              num_probes=num_probes)
+    return logdet
 
 
 def exact_logdet(A: torch.Tensor) -> torch.Tensor:

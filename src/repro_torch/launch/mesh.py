@@ -16,7 +16,12 @@ groups it is not in, so the constructor walks all of them.
 
 `init_distributed(device)` joins the process group once per process: the
 card (NCCL) unless `device="cpu"` asks for the CPU (gloo); with no card and
-no explicit device it raises. Under `torchrun` it reads RANK / WORLD_SIZE /
+no explicit device it raises. `init_fake_world(world)` joins a `fake`
+group instead (`torch.testing`'s FakeStore): one process stands for rank 0
+of a world of any size and its collectives move nothing. The dry run counts
+a production mesh (`make_production_mesh`, 256 or 512 ranks) on it. `fake`
+serves any device type; every other backend still has to match its
+device. Under `torchrun` it reads RANK / WORLD_SIZE /
 LOCAL_RANK / MASTER_ADDR and binds the process to card LOCAL_RANK before
 anything is allocated; a lone process without MASTER_ADDR rendezvouses
 through a `file://` store in a fresh temporary directory (no network).
@@ -41,6 +46,10 @@ def _backend_for(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
 
 
+def _serves(backend: str, device: torch.device) -> bool:
+    return backend == "fake" or backend == _backend_for(device)
+
+
 def init_distributed(device=None, *, init_method: str | None = None) -> torch.device:
     """Join (or reuse) the default process group; returns this rank's device.
 
@@ -55,7 +64,7 @@ def init_distributed(device=None, *, init_method: str | None = None) -> torch.de
         dev = torch.device("cuda", local)
     backend = _backend_for(dev)
     if dist.is_initialized():
-        if dist.get_backend() != backend:
+        if not _serves(dist.get_backend(), dev):
             raise ValueError(
                 f"the process group runs {dist.get_backend()!r}, which does "
                 f"not serve {dev.type} tensors (needs {backend!r})")
@@ -106,7 +115,7 @@ class Mesh:
         self.axis_names = axis_names
         self.device = torch.device(device)
         self.backend = dist.get_backend()
-        if self.backend != _backend_for(self.device):
+        if not _serves(self.backend, self.device):
             raise ValueError(f"a {self.backend!r} group cannot serve "
                              f"{self.device.type} tensors")
         self.rank = dist.get_rank()
@@ -126,6 +135,19 @@ class Mesh:
                          else dist.new_group(ranks))
                 if self.rank in ranks:
                     self._groups[axes] = (group, ranks)
+
+    @property
+    def device_mesh(self):
+        """The `torch.distributed.DeviceMesh` of the same layout (built on
+        first use), on which DTensors are placed."""
+        if getattr(self, "_device_mesh", None) is None:
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            from torch.distributed.device_mesh import DeviceMesh
+
+            with unset_fake_temporarily():   # its rank table is real
+                self._device_mesh = DeviceMesh(self.device.type, self.devices,
+                                               mesh_dim_names=self.axis_names)
+        return self._device_mesh
 
     def _key(self, axes) -> tuple:
         axes = tuple(a for a in self.axis_names if a in tuple(axes))
@@ -164,6 +186,36 @@ def make_mesh(shape: tuple, axis_names: tuple, *, device=None) -> Mesh:
     """A mesh over the (joined on demand) default process group."""
     dev = init_distributed(device)
     return Mesh(shape, axis_names, device=dev)
+
+
+def init_fake_world(world: int, rank: int = 0) -> None:
+    """Join a `fake` process group of `world` ranks as `rank` (one process,
+    no peers; the dry run's stand-in for a production cluster). Leaves an
+    already-initialized fake group of that size as it is."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world:
+            raise ValueError(
+                f"a {dist.get_backend()!r} group of world "
+                f"{dist.get_world_size()} is already initialized")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh: (16, 16) ("data", "model"), or (2, 16, 16)
+    ("pod", "data", "model") with `multi_pod`, over a process group of 256
+    or 512 ranks (a `fake` one, joined here, unless one of that size is
+    already initialized). Its tensors are CPU ones: the dry run counts on
+    fake CPU tensors (see `launch.dryrun`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = int(np.prod(shape))
+    if not (dist.is_initialized() and dist.get_world_size() == world):
+        init_fake_world(world)
+    return Mesh(shape, axes, device=torch.device("cpu"))
 
 
 def make_host_mesh(data: int | None = None, model: int = 1, *,

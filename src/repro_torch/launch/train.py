@@ -30,9 +30,25 @@ per step with the solver record's counters) and writes the JSONL when it
 ends, rank 0 to PATH and rank r > 0 to PATH.rank<r>; render it with
 `python -m repro_torch.launch.obs_report PATH`.
 
-The LM trainer (`--arch` other than gp-exact-1m, with --batch / --seq /
---lr / --full / --ckpt) is not ported (ROADMAP A, "The LM trainer") and
-raises.
+Any other `--arch` trains that LM (the reference's LM path):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        [--full] [--steps 100] [--batch 8] [--seq 128] [--lr 1e-3] \
+        [--ckpt checkpoints] [--ckpt-every 100] [--log-every 10] [--device cpu]
+
+Without `--full` the config is `reduced(ce_chunk=seq, attn_chunk=seq)`.
+The path is the host mesh (one rank), `launch.steps.make_train_step` on
+bf16 weights with fp32 AdamW moments, the synthetic `TokenPipeline`
+(seed 0), and `train.trainer.run_train_loop` with checkpoints under
+`<ckpt>/<arch name>`: it resumes from the latest one, skips a step whose
+metrics are not finite, and on SIGTERM / SIGINT writes a final checkpoint
+and stops. It prints the reference's lines plus tokens/s (at the median
+accepted step: checkpoint writes and set-up stay out), and `main` returns
+a report (losses, steps run and skipped, the final state, step seconds,
+tokens/s). `main(argv, wrap_step=f)` trains with `f(step_fn)` in place of
+the step function (a hook for tests and the card's smoke run). The LM path
+runs on one rank: data-parallel LM training over several ranks is not
+ported, and a larger world raises.
 """
 
 from __future__ import annotations
@@ -56,6 +72,10 @@ def parse_args(argv=None):
     ap.add_argument("--data", type=int, default=None, help="mesh data size")
     ap.add_argument("--model", type=int, default=1, help="mesh model size")
     ap.add_argument("--ckpt", default="checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="LM path: checkpoint every K steps")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="LM path: log every K steps")
     ap.add_argument("--gp-mode", default="2d", choices=("1d", "2d"))
     ap.add_argument("--gp-n", type=int, default=8192)
     ap.add_argument("--gp-kernel", default="matern32",
@@ -88,15 +108,69 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Run the launcher; returns the report of the GP path."""
+def main(argv=None, *, wrap_step=None) -> dict:
+    """Run the launcher; returns the report of the GP or the LM path."""
     args = parse_args(argv)
     if args.arch != GP_ARCH:
-        raise NotImplementedError(
-            f"--arch {args.arch!r}: training the LM stack is not ported to "
-            f"repro_torch (ROADMAP A, \"The LM trainer\"); only --arch "
-            f"{GP_ARCH} runs")
+        return _train_lm(args, wrap_step)
     return _train_gp(args)
+
+
+def _train_lm(args, wrap_step=None) -> dict:
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import count_params, get_arch
+    from repro_torch.train.trainer import TrainLoopConfig, run_train_loop
+
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = cfg.reduced(ce_chunk=args.seq, attn_chunk=args.seq)
+    mesh = make_host_mesh(data=args.data, model=args.model, device=args.device)
+    if dist.get_world_size() != 1:
+        raise NotImplementedError(
+            "the LM path trains on one rank; data-parallel LM training over "
+            f"{dist.get_world_size()} ranks is not ported")
+    print(f"[train] arch={cfg.name} params={count_params(cfg):,} "
+          f"mesh={dict(zip(mesh.axis_names, mesh.shape))}", flush=True)
+
+    step = make_train_step(cfg, mesh, lr=args.lr)
+    if wrap_step is not None:
+        step = wrap_step(step)
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    state = init_train_state(cfg, gen, device=mesh.device)
+    pipe = TokenPipeline(mesh, cfg.vocab, args.batch, args.seq)
+    batches = ({"tokens": b.tokens, "targets": b.targets} for b in pipe)
+    tokens_per_step = args.batch * args.seq
+    loop = TrainLoopConfig(total_steps=args.steps,
+                           ckpt_dir=os.path.join(args.ckpt, cfg.name),
+                           ckpt_every=args.ckpt_every,
+                           log_every=args.log_every,
+                           tokens_per_step=tokens_per_step)
+    t0 = time.time()
+    try:
+        res = run_train_loop(step, state, batches, loop,
+                             log_fn=lambda m: print(m, flush=True))
+    finally:
+        pipe.close()
+    seconds = time.time() - t0
+    # the median accepted step (its step_fn and the metrics' read, which
+    # waits for the card): checkpoint writes and set-up stay out
+    step_s = float(np.median(res.step_seconds)) if res.step_seconds else float("nan")
+    tok_s = tokens_per_step / step_s
+    print(f"[train] done: {res.steps_run} steps, {res.skipped} skipped "
+          f"tokens/s={tok_s:,.0f} (median step {step_s * 1e3:.1f} ms; "
+          f"{seconds:.1f} s in the loop)", flush=True)
+    return {"arch": cfg.name, "steps_run": res.steps_run,
+            "skipped": res.skipped,
+            "losses": [float(m["loss"]) for m in res.metrics_history],
+            "state": res.state, "seconds": seconds, "tokens_per_s": tok_s,
+            "step_seconds": res.step_seconds, "ckpt_dir": loop.ckpt_dir}
 
 
 def prepare_gp_data(mesh, X_host, y_host, *, backend, gp_mode, kernel,

@@ -21,16 +21,108 @@ capacity factor).
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from .attention import attention, attn_params, decode_attention, qkv_proj
 from .layers import apply_norm, apply_positional, mlp_apply, mlp_params, norm_param
 from .moe import MoE
+from .shardctx import (
+    axis_index, axis_size, current_mesh, local, shard, shard_heads, spec_of,
+)
 from .ssd import ssd_apply, ssd_decode_step, ssd_init_state, ssd_params
 
 ATTN_FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
 FAMILIES = ATTN_FAMILIES + ("ssm",)
+
+
+def _tokens(xn):
+    """A normed input (B, S, D) before its projections: batch over fsdp,
+    sequence and features whole (under a mesh, whatever layout the
+    residual add left)."""
+    return shard(xn, "fsdp", None, None)
+
+
+def _attend(q, k, v, *, causal: bool, window: int, chunk: int):
+    """`attention` on each rank's shards under a mesh (the identity wrapper
+    without one): heads over model where both head counts divide it, else
+    the query sequence over model against the full K / V (each rank's
+    queries at their absolute offset), else replicated over model."""
+    if current_mesh() is None:
+        return attention(q, k, v, causal=causal, window=window, chunk=chunk)
+    tp = axis_size("model")
+    hq, hkv, sq = q.shape[2], k.shape[2], q.shape[1]
+    q_offset = 0
+    if hq % tp == 0 and hkv % tp == 0:
+        qs = kvs = ("fsdp", None, "tp", None)
+    elif sq % tp == 0 and sq > 1:
+        qs, kvs = ("fsdp", "tp", None, None), ("fsdp", None, None, None)
+        q_offset = axis_index("model") * (sq // tp)
+    else:
+        qs = kvs = ("fsdp", None, None, None)
+    return local(lambda q_, k_, v_: attention(
+        q_, k_, v_, causal=causal, window=window, chunk=chunk,
+        q_offset=q_offset), (q, k, v), (qs, kvs, kvs), qs)
+
+
+def _decode_attend(q, k_cache, v_cache, t: int, window: int):
+    """`decode_attention`, or under a mesh with a DTensor cache, its
+    length-sharded form: each rank scores its slots of the cache (masked by
+    their absolute positions) and the softmax is combined across the ranks
+    that split the length (a max, then sums of the rescaled weights and
+    values), as flash-decoding does."""
+    if current_mesh() is None or not spec_of(k_cache):   # a plain tensor
+        return decode_attention(q, k_cache, v_cache, t, window=window)
+    from torch.distributed._functional_collectives import all_reduce
+
+    cspec = spec_of(k_cache)
+    batch, length = cspec[0], cspec[1]
+    axes = () if length is None else (
+        (length,) if isinstance(length, str) else tuple(length))
+    dm = k_cache.device_mesh
+    s_loc = -(-k_cache.shape[1] // math.prod(dm.size(dm.mesh_dim_names.index(a))
+                                             for a in axes))
+    offset = s_loc * _linear_coord(axes)
+    qspec = (batch, None, None, None)
+
+    def fn(q_, k_, v_):
+        b, _, hq, hd = q_.shape
+        hkv = k_.shape[2]
+        pos = offset + torch.arange(k_.shape[1], device=q_.device)
+        ok = pos <= t
+        if window > 0:
+            ok &= pos > t - window
+        qg = q_.reshape(b, hkv, hq // hkv, hd).to(torch.float32)
+        sc = torch.einsum("bgrd,bsgd->bgrs", qg, k_.to(torch.float32)) * hd ** -0.5
+        sc = sc.masked_fill(~ok, -1e30)
+        m = sc.amax(-1, keepdim=True)
+        for a in axes:
+            m = all_reduce(m, "max", (dm, dm.mesh_dim_names.index(a)))
+        w = torch.exp(sc - m)
+        den, num = w.sum(-1, keepdim=True), torch.einsum(
+            "bgrs,bsgd->bgrd", w, v_.to(torch.float32))
+        for a in axes:
+            den = all_reduce(den, "sum", (dm, dm.mesh_dim_names.index(a)))
+            num = all_reduce(num, "sum", (dm, dm.mesh_dim_names.index(a)))
+        return (num / den).reshape(b, 1, hq, hd).to(q_.dtype)
+
+    return local(fn, (q, k_cache, v_cache), (qspec, cspec, cspec), qspec)
+
+
+def _linear_coord(axes) -> int:
+    """This rank's linear index over `axes` (row-major, mesh order)."""
+    idx = 0
+    for a in axes:
+        idx = idx * axis_size(a) + axis_index(a)
+    return idx
+
+
+def _heads_merged(out, b: int, s: int):
+    """(B, S, H, hd) -> (B, S, H * hd), the merged heads over model: the
+    row-parallel output projection's input layout."""
+    return shard(out.reshape(b, s, -1), "fsdp", None, "tp")
 
 
 class Block(nn.Module):
@@ -66,17 +158,17 @@ class Block(nn.Module):
 
     def _attn_branch(self, cfg, xn, positions, win, causal):
         q, k, v = qkv_proj(self.attn, xn, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-        q = apply_positional(cfg, q, positions)
+        q = shard_heads(apply_positional(cfg, q, positions))
         k = apply_positional(cfg, k, positions)
-        out = attention(q, k, v, causal=causal, window=win, chunk=cfg.attn_chunk)
+        out = _attend(q, k, v, causal=causal, window=win, chunk=cfg.attn_chunk)
         b, s = xn.shape[:2]
-        return out.reshape(b, s, -1) @ self.attn["wo"]
+        return _heads_merged(out, b, s) @ self.attn["wo"]
 
     def _ffn(self, cfg, x, capacity_factor):
         """The pre-norm FFN residual: (x, moe_aux)."""
         if cfg.family == "ssm":
             return x, None
-        xn = apply_norm(cfg.norm, x, self.ln2)
+        xn = _tokens(apply_norm(cfg.norm, x, self.ln2))
         if cfg.family == "moe":
             mo, aux = self.moe(xn, top_k=cfg.top_k, capacity_factor=capacity_factor)
             return x + mo, aux
@@ -85,7 +177,7 @@ class Block(nn.Module):
     def forward(self, cfg, x, positions, win: int = 0, enc_out=None, *,
                 causal: bool = True):
         """One block, training / prefill. Returns (x, moe_aux)."""
-        xn = apply_norm(cfg.norm, x, self.ln1)
+        xn = _tokens(apply_norm(cfg.norm, x, self.ln1))
         fam = cfg.family
         if fam == "hybrid":
             attn_out = self._attn_branch(cfg, xn, positions, win, True)
@@ -97,14 +189,14 @@ class Block(nn.Module):
             x = x + self._attn_branch(cfg, xn, positions, win, causal)
 
         if enc_out is not None:  # cross-attention (enc-dec decoder)
-            xn = apply_norm(cfg.norm, x, self.ln_cross)
+            xn = _tokens(apply_norm(cfg.norm, x, self.ln_cross))
             b, s = xn.shape[:2]
             se = enc_out.shape[1]
             q = (xn @ self.cross["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
             k = (enc_out @ self.cross["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
             v = (enc_out @ self.cross["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
-            out = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-            x = x + out.reshape(b, s, -1) @ self.cross["wo"]
+            out = _attend(q, k, v, causal=False, window=0, chunk=cfg.attn_chunk)
+            x = x + _heads_merged(out, b, s) @ self.cross["wo"]
 
         x, aux = self._ffn(cfg, x, cfg.capacity_factor)
         if aux is None:
@@ -123,7 +215,7 @@ class Block(nn.Module):
         k = apply_positional(cfg, k, pos)
         cache["k"][:, t] = k[:, 0]
         cache["v"][:, t] = v[:, 0]
-        out = decode_attention(q, cache["k"], cache["v"], t, window=win)
+        out = _decode_attend(q, cache["k"], cache["v"], t, win)
         return out.reshape(b, 1, -1) @ self.attn["wo"]
 
     def decode(self, cfg, x, cache, t: int, win: int = 0):
@@ -145,8 +237,8 @@ class Block(nn.Module):
             xn = apply_norm(cfg.norm, x, self.ln_cross)
             b = xn.shape[0]
             q = (xn @ self.cross["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
-            out = decode_attention(q, cache["ck"], cache["cv"],
-                                   cache["ck"].shape[1] - 1)
+            out = _decode_attend(q, cache["ck"], cache["cv"],
+                                 cache["ck"].shape[1] - 1, 0)
             x = x + out.reshape(b, 1, -1) @ self.cross["wo"]
 
         # MoE at capacity factor 8: one token per sequence never drops

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .shardctx import shard
+
 
 def normal_init(shape, scale: float, generator, dtype, device) -> torch.Tensor:
     """scale * N(0, 1) drawn from `generator`; an empty tensor on the `meta`
@@ -65,6 +67,7 @@ def mlp_apply(kind: str, p, x):
         h = F.gelu(x @ p["wi"], approximate="tanh")
     else:
         raise ValueError(kind)
+    h = shard(h, *(("fsdp",) + (None,) * (h.ndim - 2) + ("tp",)))  # F over model
     return h @ p["wo"]
 
 

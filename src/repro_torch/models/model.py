@@ -44,6 +44,7 @@ from .attention import qkv_proj
 from .blocks import Block, init_layer_cache
 from .config import ArchConfig
 from .layers import apply_norm, apply_positional, norm_param, normal_init, positions_for
+from .shardctx import shard, shard_hidden
 from .ssd import _causal_conv, _split_proj
 
 
@@ -109,12 +110,17 @@ def _embed_input(cfg, lm: LM, batch):
 def _run_stack(cfg, blocks, h, positions, wins, enc_out=None, *, causal=True):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    # the residual stream between blocks: batch over fsdp. Not sequence-
+    # parallel as the reference's: DTensor cannot carry a sequence shard
+    # through the flattened (B * S) matmuls of the backward
+    h = shard_hidden(h, sp=False)
     for block, win in zip(blocks, wins):
         if remat:
             h, a = checkpoint(block, cfg, h, positions, win, enc_out,
                               causal=causal, use_reentrant=False)
         else:
             h, a = block(cfg, h, positions, win, enc_out, causal=causal)
+        h = shard_hidden(h, sp=False)
         aux = aux + a
     return h, aux
 
@@ -151,9 +157,13 @@ def forward_hidden(cfg, lm: LM, batch, positions=None):
 
 
 def _ce_chunk(hx, tx, embed):
-    logits = hx.to(torch.float32) @ embed.to(torch.float32).T   # (B, c, V)
+    h32, e32 = hx.to(torch.float32), embed.to(torch.float32)
+    logits = shard(h32 @ e32.T, "fsdp", None, "tp")             # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tx[..., None])[..., 0]
+    # the gold logit as a row-wise dot with the target's embedding row: the
+    # same value as a gather from `logits`, and no index into a V-sharded
+    # tensor under DTensor
+    gold = torch.sum(h32 * e32[tx], dim=-1)
     return torch.sum(lse - gold)
 
 
@@ -233,12 +243,12 @@ def prefill(cfg, lm: LM, state, batch):
     As the reference: the training forward plus cache writes, each layer's
     K/V recomputed from its normed input into slots [0, S) of the cache;
     for ssm / hybrid the final SSD state seeds the recurrence."""
-    h = _embed_input(cfg, lm, batch)
+    h = shard_hidden(_embed_input(cfg, lm, batch), sp=False)
     b, s, _ = h.shape
     positions = positions_for(cfg, b, s, device=h.device)
     enc_out = encode(cfg, lm, batch["enc_embeds"]) if cfg.is_encdec else None
     for block, win, cache in zip(lm.blocks, _win_schedule(cfg), state["caches"]):
-        xn = apply_norm(cfg.norm, h, block.ln1)
+        xn = shard(apply_norm(cfg.norm, h, block.ln1), "fsdp", None, None)
         if "k" in cache:
             _, k, v = qkv_proj(block.attn, xn, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
             cache["k"][:, :s] = apply_positional(cfg, k, positions)
@@ -251,6 +261,7 @@ def prefill(cfg, lm: LM, state, batch):
         if "ssm" in cache:
             _ssd_prefill_state(cfg, block.ssm, xn, cache["ssm"])
         h, _ = block(cfg, h, positions, win, enc_out)
+        h = shard_hidden(h, sp=False)
     h = apply_norm(cfg.norm, h, lm.final_norm)
     state["t"] = s
     return state, _logits(lm, h[:, -1])

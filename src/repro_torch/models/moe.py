@@ -24,6 +24,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import mlp_apply, mlp_params, normal_init
+from .shardctx import current_mesh, local, shard
+
+# MoE.forward under a mesh: each weight's layout on the rank's batch shard
+# (the expert hidden dim over model)
+_TP_SPECS = {"router": (None, None), "wi": (None, None, "tp"),
+             "wg": (None, None, "tp"), "wo": (None, "tp", None),
+             "shared.wi": (None, "tp"), "shared.wg": (None, "tp"),
+             "shared.wo": ("tp", None)}
 
 
 class MoE(nn.Module):
@@ -57,7 +65,24 @@ class MoE(nn.Module):
         return hasattr(self, key)
 
     def forward(self, x, *, top_k: int, capacity_factor: float):
-        return moe_apply(self, x, top_k=top_k, capacity_factor=capacity_factor)
+        """moe_apply on x (B, S, D); under a mesh, on each rank's batch
+        shard (routing is per sequence, so it stays local) with the expert
+        hidden dim over model: the output is a partial sum over model, the
+        aux loss a partial mean over the batch axes."""
+        if current_mesh() is None:
+            return moe_apply(self, x, top_k=top_k, capacity_factor=capacity_factor)
+        names, ws = zip(*self.named_parameters())
+        tok = ("fsdp", None, None)
+
+        def run(x_, *ws_):
+            p = dict(zip(names, ws_))
+            if "shared.wi" in p:
+                p["shared"] = {k: p.pop(f"shared.{k}") for k in ("wi", "wg", "wo")}
+            return moe_apply(p, x_, top_k=top_k, capacity_factor=capacity_factor)
+
+        return local(run, (x, *ws), (tok, *(_TP_SPECS[n] for n in names)),
+                     [tok, ()], [{"model": "sum"},
+                                 {"pod": "avg", "data": "avg"}])
 
 
 def moe_route(p, x, *, top_k: int, capacity_factor: float):
@@ -94,11 +119,13 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25):
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * top_k)
     buf = torch.zeros((b, e * capacity + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((bidx, slot), vals)
-    expert_in = buf[:, :-1].reshape(b, e, capacity, d)
+    expert_in = shard(buf[:, :-1].reshape(b, e, capacity, d),
+                      "fsdp", None, None, None)
 
-    # batched expert SwiGLU: (B, E, C, D) x (E, D, F)
+    # batched expert SwiGLU: (B, E, C, D) x (E, D, F), F over model
     h = F.silu(torch.einsum("becd,edf->becf", expert_in, p["wg"])) * \
         torch.einsum("becd,edf->becf", expert_in, p["wi"])
+    h = shard(h, "fsdp", None, None, "tp")
     expert_out = torch.einsum("becf,efd->becd", h, p["wo"])  # (B, E, C, D)
 
     # combine: gather back per sequence, weight by router prob

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import normal_init, rmsnorm
+from .shardctx import current_mesh, local
 
 
 def ssd_params(generator, cfg, dtype, device) -> nn.ParameterDict:
@@ -89,7 +90,19 @@ def _chunk_step(Hstate, xc, Bc, Cc, dtc, lac):
 
 
 def ssd_apply(p, cfg, x):
-    """x (B, S, D) -> (B, S, D) via the chunked SSD."""
+    """x (B, S, D) -> (B, S, D) via the chunked SSD. Under a mesh, on each
+    rank's batch shard with the block's weights replicated (the scan is
+    per sequence)."""
+    if current_mesh() is None:
+        return _ssd_apply(p, cfg, x)
+    names = list(p.keys())
+    ws = [p[k] for k in names]
+    tok = ("fsdp", None, None)
+    return local(lambda x_, *ws_: _ssd_apply(dict(zip(names, ws_)), cfg, x_),
+                 (x, *ws), (tok, *((None,) * w.ndim for w in ws)), tok)
+
+
+def _ssd_apply(p, cfg, x):
     bsz, s_orig, _ = x.shape
     dinner, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     q = min(cfg.ssm_chunk, s_orig)

@@ -1,5 +1,6 @@
 """Adam / AdamW on params NamedTuple trees (fp32 moments whatever the
-param dtype), step for step the reference's `repro.optim.adam`."""
+param dtype), step for step the reference's `repro.optim.adam`, and the
+LM trainer's `clip_by_global_norm`."""
 
 from __future__ import annotations
 
@@ -54,3 +55,31 @@ def adam_update(params, grads, state: AdamState, lr, b1: float = 0.9,
     return params_unflatten(params, new_p), AdamState(
         step=step, mu=params_unflatten(params, new_m),
         nu=params_unflatten(params, new_v))
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _tree_leaves(t)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled so their global L2 norm is at most `max_norm`, the
+    norm before scaling). `grads` is a dict / tuple / NamedTuple tree of
+    tensors; the norm is fp32 and each leaf keeps its dtype."""
+    leaves = _tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return _tree_map(lambda g: (g * scale).to(g.dtype), grads), gn

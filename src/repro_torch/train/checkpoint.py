@@ -49,9 +49,35 @@ def flatten_with_keys(tree: Any) -> list[tuple[str, Any]]:
 
 
 def to_numpy(leaf) -> np.ndarray:
+    """A leaf as a numpy array; bf16 (which numpy lacks) as its raw uint16
+    bits, which `from_numpy` turns back into bf16 bit for bit."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.uint16)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def from_numpy(arr: np.ndarray, like):
+    """A restored array as a leaf like `like`: a tensor of its dtype on its
+    device (bf16 from the uint16 bits `to_numpy` wrote); any other
+    template leaf gets the array itself."""
+    if not isinstance(like, torch.Tensor):
+        return arr
+    if like.dtype == torch.bfloat16 and arr.dtype == np.uint16:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr)).to(like.dtype)
+    return t.to(like.device)
+
+
+def tree_from_numpy(template: Any, arrays: Any):
+    """`arrays` (a tree shaped as `template`, as `load_checkpoint` returns
+    it) with every leaf made like the template's (`from_numpy`)."""
+    by_key = dict(flatten_with_keys(arrays))
+    return tree_map_with_keys(lambda k, leaf: from_numpy(by_key[k], leaf),
+                              template)
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,

@@ -220,3 +220,34 @@ def obs_microbench(rank, p):
                            "d_col": geom.d_col, "n_local": geom.n_local})
     out["auto"] = [r["collective"] for r in collective_microbench(reps=2)]
     return out
+
+
+def elastic_reshard(rank, p):
+    """A (4, 1) run's host-canonical checkpoint restored onto a (2, 2) mesh
+    (see tests/test_torch_trainer.py)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.elastic import reshard, validate_divisibility
+
+    def pspec(path, leaf):
+        return ("data", "model") if np.ndim(leaf) == 2 else ()
+
+    mesh4 = make_mesh((4, 1), ("data", "model"), device="cpu")
+    w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    state = reshard({"w": w, "step": torch.tensor(5)}, mesh4, pspec)
+    full = {"w": state["w"].full_tensor(), "step": state["step"].full_tensor()}
+    if rank == 0:
+        save_checkpoint(p["dir"], 5, full)
+    dist.barrier()
+
+    mesh2 = make_mesh((2, 2), ("data", "model"), device="cpu")
+    loaded, step, _ = load_checkpoint(p["dir"], full)
+    problems = validate_divisibility(loaded, mesh2, pspec)
+    placed = reshard(loaded, mesh2, pspec)
+    return {"step": step, "problems": problems,
+            "w4_local": _np(state["w"].to_local()),
+            "w2_local": _np(placed["w"].to_local()),
+            "w2_full": _np(placed["w"].full_tensor()),
+            "placements": [str(pl) for pl in placed["w"].placements],
+            "mesh_shape": tuple(placed["w"].device_mesh.shape),
+            "bad": validate_divisibility({"v": np.zeros((3, 8))}, mesh2, pspec)}

@@ -455,7 +455,12 @@ def test_launcher_world_of_two(tmp_path):
 
 
 def test_launcher_refuses_other_archs():
+    """Every registered LM arch now trains (`tests/test_torch_trainer.py`);
+    an arch the registry lacks is refused before any group is joined."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="the LM stack"):
+    with pytest.raises(KeyError, match="lm-small"):
         train.main(["--arch", "lm-small", "--device", "cpu"])
+    assert not dist.is_initialized()
