@@ -265,6 +265,27 @@ caught and skipped):
    and peak GiB per model beside the card's name and power limit, and
    each model's step at 8 x 1024 timed on the host clock beside its
    profiled kernel time (the card's busy share of a step).
+14c. The sharded train step (the multi-rank LM path) on the card's
+   one-rank NCCL group: smollm-360m at its published width and depth,
+   bf16 weights, fp32 moments, 8 x 1024, the phase-14 stream. A (1, 1)
+   `make_host_mesh`; the state placed as DTensors by
+   `launch.steps.place_train_state`, the batches by `TokenPipeline` with
+   the mesh; 3 steps through the sharded path and 3 through the plain one
+   from the same state on the same batches. Gates: each step's loss
+   within 3e-5 relative of the plain path's; after step 1 every parameter
+   within 2e-4 of max|param|; only `shardctx.REPLICATE_OK` ops ran
+   replicated; the sharded state's checkpoint (gathered, written by rank
+   0) has the same arrays (shape, dtype, crc32 each) as the same state's
+   as plain tensors, restores onto the plain path bit for bit, and one
+   more step from it agrees on both paths. Printed: bit for bit or not,
+   the median step ms of both paths, peak GiB and the ops that ran
+   replicated, beside the card's name and power limit. Then a host-CPU
+   check under the card host's own torch: a gloo world of 2 (spawned
+   processes) runs one fp32 step at lr 1e-6 of reduced smollm-360m on
+   (2, 1) and (1, 2) and of reduced granite-moe-3b-a800m on (1, 2),
+   each against the one-rank step (loss, grad_norm, ce within 3e-5; the
+   state within 2e-4 of max). Multi-card training itself needs a host
+   with several cards (`scripts/torch_dist_check.py --lm`).
 15. The phases' seconds beside the card's name and power limit (again, so
    the end of the output holds them), the `kernels` JSON line, then the
    last line
@@ -2851,6 +2872,245 @@ def phase_train_lm() -> dict:
     return {"rows": rows, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 14c: the sharded train step
+# ---------------------------------------------------------------------------
+
+# (arch, global batch, seq, steps): the phase-14 smollm run's shape, bf16
+SHARDED_LM = ("smollm-360m", 8, 1024, 3)
+SHARDED_LOSS_TOL = 3e-5        # relative, per step
+VAL_TOL_LM = 3e-5              # loss / grad_norm / ce, the host-CPU check
+SHARDED_PARAM_TOL = 2e-4       # of max|param|, after step 1
+# the host-CPU check (gloo, world 2): (arch, mesh) at the reduced configs,
+# one fp32 step at lr 1e-6 on a global batch of 4 x 64 against one rank
+HOST_CPU_CASES = (("smollm-360m", (2, 1)), ("smollm-360m", (1, 2)),
+                  ("granite-moe-3b-a800m", (1, 2)))
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        kind = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.view(kind), b.view(kind)
+    return bool(torch.equal(a, b))
+
+
+def _plain(state):
+    """A sharded TrainState's full tensors (gathers on every rank)."""
+    from repro_torch.launch.steps import TrainState
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    return TrainState({k: full(v) for k, v in state.params.items()},
+                      {k: full(v) for k, v in state.mu.items()},
+                      {k: full(v) for k, v in state.nu.items()}, full(state.step))
+
+
+def _steps_timed(step, state, batches) -> tuple:
+    """Run `step` over `batches` from `state`: (losses, the parameters
+    after step 1, the final state, each step's ms on the host clock,
+    synchronized)."""
+    losses, ms, first = [], [], None
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = met["loss"]
+        losses.append(float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                            else loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if first is None:
+            first = state.params
+    return losses, first, state, ms
+
+
+def _host_rank(rank, world, store, out_dir):
+    """One rank of the host-CPU check: each case's sharded step on a gloo
+    mesh against the one-rank step on the same state and global batch.
+    Saves the errors to out_dir/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (
+        init_train_state, make_train_step, place_train_state)
+    from repro_torch.models import get_arch
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    out = {}
+    try:
+        for arch, shape in HOST_CPU_CASES:
+            cfg = get_arch(arch).reduced()
+            state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                     dtype=torch.float32, device="cpu")
+            mesh = make_host_mesh(*shape, device="cpu")
+            batch = {}
+            for key, m in (("plain", None), ("sharded", mesh)):
+                pipe = TokenPipeline(m, cfg.vocab, 4, 64, seed=0, device="cpu")
+                b = next(pipe)
+                pipe.close()
+                batch[key] = {"tokens": b.tokens, "targets": b.targets}
+            plain_new, plain_met = make_train_step(cfg, None, lr=1e-6)(
+                state, batch["plain"])
+            step = make_train_step(cfg, mesh, lr=1e-6)
+            new, met = step(place_train_state(mesh, state), batch["sharded"])
+            new = _plain(new)
+            err = {k: abs(float(met[k].full_tensor() if hasattr(met[k], "full_tensor")
+                                else met[k]) - float(plain_met[k]))
+                   / abs(float(plain_met[k])) for k in ("loss", "grad_norm", "ce")}
+            for part in ("params", "mu", "nu"):
+                err[part] = max(
+                    float((getattr(new, part)[k] - v).abs().max()
+                          / v.abs().max().clamp(min=1e-30))
+                    for k, v in getattr(plain_new, part).items())
+            out[f"{arch} {shape}"] = {"err": err, "fallbacks": dict(step.fallbacks)}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _host_cpu_check() -> dict:
+    """The port-only part of tests/test_torch_lm_dist.py (a) on this host's
+    CPU and torch: a gloo world of 2, one step per case of
+    `HOST_CPU_CASES` against the one-rank step. Gates: loss, grad_norm and
+    ce within 3e-5 relative, parameters and both moments within 2e-4 of
+    their largest entry, on both ranks."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        mp.spawn(_host_rank, args=(2, os.path.join(tmp, "store"), tmp), nprocs=2,
+                 join=True)
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for case in outs[0]:
+        errs = [o[case]["err"] for o in outs]
+        worst = {k: max(e[k] for e in errs) for k in errs[0]}
+        log(f"[train-sharded] host-CPU check (gloo, world 2, torch "
+            f"{torch.__version__}), {case} reduced, one fp32 step vs one rank: "
+            f"relative errors {json.dumps(worst)}; ran replicated: "
+            f"{outs[0][case]['fallbacks']}")
+        if not (all(worst[k] <= VAL_TOL_LM for k in ("loss", "grad_norm", "ce"))
+                and all(worst[k] <= SHARDED_PARAM_TOL for k in ("params", "mu", "nu"))):
+            raise AssertionError(f"[train-sharded] host-CPU check failed: {case}")
+    return {case: max(o[case]["err"]["params"] for o in outs) for case in outs[0]}
+
+
+def phase_train_sharded() -> dict:
+    """Phase 14c: the sharded train step (see the module docstring)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (
+        TrainState, init_train_state, make_train_step, place_train_state)
+    from repro_torch.models import get_arch
+    from repro_torch.models.shardctx import REPLICATE_OK
+    from repro_torch.train.checkpoint import (
+        load_checkpoint, save_checkpoint, tree_from_numpy)
+
+    t_phase = time.perf_counter()
+    arch, b, s, n = SHARDED_LM
+    cfg = get_arch(arch)
+    mesh = make_host_mesh(1, 1, device=DEV)   # NCCL: the card's group
+    state = init_train_state(cfg, torch.Generator(device=DEV).manual_seed(DATA_SEED),
+                             device=DEV)
+    batches = {}
+    for key, m in (("plain", None), ("sharded", mesh)):
+        pipe = TokenPipeline(m, cfg.vocab, b, s, seed=DATA_SEED, device=DEV)
+        batches[key] = [{"tokens": x.tokens, "targets": x.targets}
+                        for x in (next(pipe) for _ in range(n))]
+        pipe.close()
+    if not all(_same_bits(sb[k].full_tensor(), pb[k]) for sb, pb in
+               zip(batches["sharded"], batches["plain"]) for k in sb):
+        raise AssertionError("[train-sharded] the two streams differ")
+
+    sharded_step = make_train_step(cfg, mesh, lr=1e-3)
+    placed = place_train_state(mesh, state)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s_losses, s_first, s_final, s_ms = _steps_timed(sharded_step, placed,
+                                                     batches["sharded"])
+    peak = torch.cuda.max_memory_allocated()
+    s_first = {k: v.full_tensor() for k, v in s_first.items()}
+    del placed
+    p_losses, p_first, p_final, p_ms = _steps_timed(
+        make_train_step(cfg, None, lr=1e-3), state, batches["plain"])
+    del state
+    loss_err = [abs(a - c) / abs(c) for a, c in zip(s_losses, p_losses)]
+    param_err = max(float((s_first[k] - v).abs().max().float()
+                          / v.abs().max().float()) for k, v in p_first.items())
+    first_bits = all(_same_bits(s_first[k], v) for k, v in p_first.items())
+    s_plain = _plain(s_final)
+    final_bits = all(_same_bits(getattr(s_plain, part)[k], v)
+                     for part in ("params", "mu", "nu")
+                     for k, v in getattr(p_final, part).items())
+    del s_first, p_first
+    card = card_and_power_limit()
+    log(f"[train-sharded] {arch} --full, bf16 weights, fp32 moments, {b} x {s}, "
+        f"{mesh}: losses {s_losses} vs the plain path's {p_losses} "
+        f"(relative {max(loss_err):.3g}); after step 1 the parameters within "
+        f"{param_err:.3g} of max|param|, bit for bit: {first_bits}; after "
+        f"step {n} the whole state bit for bit: {final_bits}")
+    log(f"[train-sharded] median step: sharded {float(np.median(s_ms)):.1f} ms, "
+        f"plain {float(np.median(p_ms)):.1f} ms (steps {[round(x, 1) for x in s_ms]}"
+        f" vs {[round(x, 1) for x in p_ms]}); sharded peak {peak / 2**30:.2f} GiB; "
+        f"ran replicated: {sharded_step.fallbacks}; {card}")
+    if not (max(loss_err) <= SHARDED_LOSS_TOL and param_err <= SHARDED_PARAM_TOL
+            and set(sharded_step.fallbacks) <= REPLICATE_OK):
+        raise AssertionError("[train-sharded] the sharded path disagrees")
+
+    # the sharded state's checkpoint (gathered, written by rank 0) against
+    # the same state's as plain tensors; then restored onto either path
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_ck_")
+    try:
+        save_checkpoint(os.path.join(root, "sharded"), n, s_final)
+        save_checkpoint(os.path.join(root, "plain"), n, s_plain)
+        manifests = []
+        for key in ("sharded", "plain"):
+            with open(os.path.join(root, key, f"step_{n:08d}", "MANIFEST.json")) as f:
+                manifests.append(json.load(f)["arrays"])
+        arrays, _, _ = load_checkpoint(os.path.join(root, "sharded"), s_plain)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    restored = tree_from_numpy(s_plain, arrays)
+    del arrays
+    restored_bits = all(_same_bits(getattr(restored, part)[k], v)
+                        for part in ("params", "mu", "nu")
+                        for k, v in getattr(s_plain, part).items()) and \
+        _same_bits(restored.step, s_plain.step)
+    extra = batches["plain"][0]
+    _, met_plain = make_train_step(cfg, None, lr=1e-3)(restored, extra)
+    _, met_shard = sharded_step(place_train_state(mesh, restored),
+                                batches["sharded"][0])
+    l_plain, l_shard = float(met_plain["loss"]), float(met_shard["loss"].full_tensor())
+    log(f"[train-sharded] checkpoint of the sharded state == the plain "
+        f"state's: {manifests[0] == manifests[1]} ({len(manifests[0])} arrays, "
+        f"crc32 each); restored onto the plain path bit for bit: "
+        f"{restored_bits}; one more step from it: plain loss {l_plain}, "
+        f"sharded {l_shard}")
+    if not (manifests[0] == manifests[1] and restored_bits
+            and math.isfinite(l_plain)
+            and abs(l_shard - l_plain) <= SHARDED_LOSS_TOL * abs(l_plain)):
+        raise AssertionError("[train-sharded] checkpoint gate failed")
+    del s_final, s_plain, p_final, restored, batches
+    torch.cuda.empty_cache()
+
+    host = _host_cpu_check()
+    seconds = time.perf_counter() - t_phase
+    log(f"[train-sharded] phase 14c in {seconds:.1f} s on {card}")
+    return {"sharded_ms": float(np.median(s_ms)), "plain_ms": float(np.median(p_ms)),
+            "sharded_steps_ms": s_ms, "plain_steps_ms": p_ms,
+            "losses": s_losses, "plain_losses": p_losses,
+            "param_err": param_err, "first_bits": first_bits,
+            "final_bits": final_bits, "peak_gib": peak / 2**30,
+            "fallbacks": dict(sharded_step.fallbacks), "host_cpu": host,
+            "seconds": seconds}
+
+
 def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
@@ -2893,10 +3153,12 @@ def main() -> None:
     serve_lm = phase_serve_lm()
     count = phase_count()
     train_lm = phase_train_lm()
+    sharded = phase_train_sharded()
     dist.destroy_process_group()
     log(f"[smoke] phases done in {time.perf_counter() - t0:.1f} s (phase 12 "
         f"{serve_lm['seconds']:.1f} s, phase 13 {count['seconds']:.1f} s, "
-        f"phase 14 {train_lm['seconds']:.1f} s) on {card_and_power_limit()}")
+        f"phase 14 {train_lm['seconds']:.1f} s, phase 14c "
+        f"{sharded['seconds']:.1f} s) on {card_and_power_limit()}")
 
     kernels = []
     sources = {"kmvm": ("src/repro_torch/kernels/csrc/kmvm.cu",
@@ -2970,6 +3232,7 @@ def main() -> None:
     log(f"[serve-lm] {json.dumps(serve_lm['rows'])}")
     log(f"[count] {json.dumps({'lm': count['lm'], 'gp': count['gp']})}")
     log(f"[train-lm] {json.dumps(train_lm['rows'])}")
+    log(f"[train-sharded] {json.dumps(sharded)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

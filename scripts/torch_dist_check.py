@@ -22,6 +22,21 @@ JSON line per case, the card's name and power limit, and a last line
 {"ok": true, ...}; any mismatch exits 1. It builds the kernels on rank 0
 first (the others wait at a barrier) and needs no network beyond the
 host's loopback.
+
+    torchrun --nproc_per_node=2|4 scripts/torch_dist_check.py --lm
+
+checks LM training over the cards instead: one smollm-360m train step
+(`launch.steps.make_train_step`, fp32 weights and moments, lr 1e-6, the
+synthetic stream's first global batch of 8 x 1024) on every (data, model)
+mesh of the world — (2, 1) on two cards, (2, 2) and (4, 1) on four — the
+state placed by `place_train_state` and the batch by `TokenPipeline`,
+against rank 0's plain one-card step on the same state and batch: loss,
+grad_norm and ce within 3e-5 relative, the gathered parameters and both
+moments within 2e-4 of their largest entry (tests/test_torch_lm_dist.py's
+gates). Each mesh's step is timed (the median of 3 after a warm-up, ranks
+aligned by a barrier, host clock to a synchronize) beside the one card's.
+With `--device cpu` it rehearses on gloo at the reduced config and a
+global batch of 4 x 64.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -69,14 +85,108 @@ def _median_ms(fn, reps: int = 5) -> float | None:
     return float(np.median(times)) if times else None
 
 
+def _step_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of fn() after a warm-up, ranks aligned by a barrier
+    before each, to a synchronize on the card."""
+    cuda = dist.get_backend() == "nccl"
+    fn()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def lm_check(dev, say) -> bool:
+    """The `--lm` check (see the module docstring); True if every mesh
+    agrees with the one card."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (
+        init_train_state, make_train_step, place_train_state)
+    from repro_torch.models import get_arch
+    from repro_torch.train.checkpoint import to_numpy
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = get_arch("smollm-360m")
+    b, s = 8, 1024
+    if dev.type == "cpu":
+        cfg, b, s = cfg.reduced(), 4, 64
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.float32, device=dev)
+
+    def first(mesh):
+        pipe = TokenPipeline(mesh, cfg.vocab, b, s, seed=0, device=dev)
+        try:
+            x = next(pipe)
+        finally:
+            pipe.close()
+        return {"tokens": x.tokens, "targets": x.targets}
+
+    ok = True
+    plain = single_ms = None
+    if rank == 0:
+        step = make_train_step(cfg, None, lr=1e-6)
+        batch = first(None)
+        plain = step(state, batch)
+        single_ms = _step_ms(lambda: step(state, batch))
+    else:
+        _step_ms(lambda: None)   # the same barriers as rank 0
+    shapes = [(world, 1)] + ([(2, 2)] if world == 4 else [])
+    for shape in shapes:
+        mesh = make_host_mesh(*shape, device=dev)
+        step = make_train_step(cfg, mesh, lr=1e-6)
+        placed = place_train_state(mesh, state)
+        batch = first(mesh)
+        new, met = step(placed, batch)
+        full = {part: {k: to_numpy(v) for k, v in getattr(new, part).items()}
+                for part in ("params", "mu", "nu")}
+        met = {k: float(to_numpy(v)) for k, v in met.items()}
+        ms = _step_ms(lambda: step(placed, batch))
+        row = {"case": "lm_step", "arch": cfg.name, "mesh": list(shape),
+               "batch": [b, s], "ms": ms, "single_card_ms": single_ms,
+               "fallbacks": dict(step.fallbacks)}
+        if rank == 0:
+            pnew, pmet = plain
+            rel = {k: abs(met[k] - float(pmet[k])) / abs(float(pmet[k]))
+                   for k in ("loss", "grad_norm", "ce")}
+            state_err = max(
+                float(np.max(np.abs(full[part][k] - to_numpy(v)))
+                      / max(float(np.max(np.abs(to_numpy(v)))), 1e-30))
+                for part in ("params", "mu", "nu")
+                for k, v in getattr(pnew, part).items())
+            row.update(rel_err=rel, state_err=state_err)
+            ok &= max(rel.values()) <= 3e-5 and state_err <= 2e-4
+        say(row)
+        del placed, new
+    return ok
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 19)
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses the same program on gloo")
+    ap.add_argument("--lm", action="store_true",
+                    help="check LM training over the world instead")
     args = ap.parse_args(argv)
     dev = init_distributed(args.device)
     rank, world = dist.get_rank(), dist.get_world_size()
+    if args.lm:
+        def say_lm(obj):
+            if rank == 0:
+                print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+        if rank == 0 and dev.type == "cuda":
+            say_lm(_card())
+        ok = lm_check(dev, say_lm)
+        return _finish(ok, dev, world, say_lm)
     if dev.type == "cuda":
         if rank == 0:
             build.build()
@@ -89,9 +199,7 @@ def main(argv=None) -> None:
             print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
     if lead and dev.type == "cuda":
-        say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True, check=True, timeout=60).stdout.strip())
+        say(_card())
     n, d = args.n, 9
     rng = np.random.default_rng(0)
     X = torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32, device=dev)
@@ -157,6 +265,17 @@ def main(argv=None) -> None:
          "rel_residual": rel, "iterations": kmvm.launch_counts["kmvm_chunk"]
          // max(geom.d_row, 1), "finite": bool(torch.isfinite(a).all())})
     ok &= rel <= 1e-3 and bool(torch.isfinite(a).all())
+    _finish(ok, dev, world, say)
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
+def _finish(ok, dev, world, say) -> None:
+    """Agree on `ok` over the world, print the last line, exit 0 / 1."""
     flags = torch.tensor([float(ok)], device=dev)
     dist.all_reduce(flags, op=dist.ReduceOp.MIN)
     ok = bool(flags.item())

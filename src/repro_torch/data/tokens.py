@@ -57,18 +57,38 @@ def _synth_stream(vocab: int, batch: int, seq: int, seed: int) -> Iterator[dict]
 class TokenPipeline:
     """Prefetch of synthetic batches onto a device (default: the card).
 
-    `mesh` may be None (one device) or a `launch.mesh.Mesh`, whose device is
-    used; the batch is this rank's whole batch (the reference shards the
-    global batch over `data_axes`; one rank per card holds its own rows).
+    `batch` is the global batch. With `mesh=None` a batch is one plain
+    tensor pair on `device`. With a `launch.mesh.Mesh` every rank draws the
+    same global batch from `seed`, keeps its rows of the data axes
+    (`data_axes` present in the mesh; rank coordinate c of D takes rows
+    [c * B / D, (c + 1) * B / D)) and hands out a DTensor sharded over
+    those axes on dim 0 and replicated over the rest, on the mesh's device:
+    the reference's global batch placed by a `NamedSharding` over the data
+    axes. A global batch the data axes do not divide raises.
     """
 
     def __init__(self, mesh, vocab: int, batch: int, seq: int, *,
                  seed: int = 0, data_axes=("data",), prefetch: int = 2,
                  device=None):
-        del data_axes  # one process per card: its batch is local
         self.mesh = mesh
         self.device = (mesh.device if mesh is not None and device is None
                        else resolve_device(device))
+        self._rows = slice(None)
+        self._placements = None
+        if mesh is not None:
+            axes = tuple(a for a in data_axes if a in mesh.axis_names)
+            ranks, coord = 1, 0
+            for a in axes:
+                ranks, coord = ranks * mesh.axis_size(a), \
+                    coord * mesh.axis_size(a) + mesh.axis_index(a)
+            if batch % ranks:
+                raise ValueError(f"the global batch {batch} does not divide "
+                                 f"over the data axes {axes} of size {ranks}")
+            n = batch // ranks
+            self._rows = slice(coord * n, (coord + 1) * n)
+            from repro_torch.models.sharding import placements
+
+            self._placements = placements(mesh, (axes or None,), 2)
         self._pin = self.device.type == "cuda"
         self._it = _synth_stream(vocab, batch, seq, seed)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -80,7 +100,7 @@ class TokenPipeline:
         for item in self._it:
             if self._stop.is_set():
                 return
-            host = {k: torch.from_numpy(np.ascontiguousarray(v))
+            host = {k: torch.from_numpy(np.ascontiguousarray(v[self._rows]))
                     for k, v in item.items()}
             if self._pin:
                 host = {k: v.pin_memory() for k, v in host.items()}
@@ -94,6 +114,12 @@ class TokenPipeline:
     def __next__(self) -> TokenBatch:
         d = self._q.get()
         d = {k: v.to(self.device, non_blocking=True) for k, v in d.items()}
+        if self._placements is not None:
+            from torch.distributed.tensor import DTensor
+
+            dm = self.mesh.device_mesh
+            d = {k: DTensor.from_local(v, dm, self._placements, run_check=False)
+                 for k, v in d.items()}
         return TokenBatch(tokens=d["tokens"], targets=d["targets"])
 
     def __iter__(self):

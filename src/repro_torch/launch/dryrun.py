@@ -75,6 +75,7 @@ from repro_torch.launch.specs import (
     SHAPES, Cell, cell_for, decode_specs, gp_cells, input_specs,
 )
 from repro_torch.models import get_arch, list_archs
+from repro_torch.models.shardctx import REPLICATE_OK, ReplicateOnFailure  # noqa: F401
 
 LM_ARCHS = tuple(a for a in list_archs() if a != "gp-exact-1m")
 DEFAULT_OUT = "experiments/dryrun_torch"
@@ -279,57 +280,6 @@ def comm_kind_counts(comm_mode) -> dict:
         if kind is not None:
             out[kind] += n
     return out
-
-
-# the ops that may run on replicated operands when DTensor cannot shard
-# them, and why:
-#  - a view that splits a model-sharded feature dim into a head count the
-#    axis does not divide (smollm's 15 query and 5 KV heads over 16), or
-#    that flattens a local shard a redistribute left non-contiguous;
-#  - on torch 2.11 (the card's host), the index_put of an embedding row
-#    lookup's backward with a batch-sharded index ("Shard dim -1 ... must
-#    be normalized"), and the SSD chunk scan's pad and unsqueeze inside
-#    `local_map` (placements of one entry on a two-axis mesh); torch 2.13
-#    shards all three
-REPLICATE_OK = frozenset({
-    "aten.view.default", "aten._unsafe_view.default",
-    "aten.index_put.default", "aten.constant_pad_nd.default",
-    "aten.unsqueeze.default"})
-
-
-class ReplicateOnFailure(TorchDispatchMode):
-    """Runs an op of `REPLICATE_OK` that DTensor cannot shard on replicated
-    operands: the op is retried with every DTensor argument redistributed
-    to `Replicate`, as GSPMD all-gathers an operand it cannot partition.
-    The redistributions reach the counters as collectives and the op counts
-    its full size; `fallbacks` names each op that took this path. Any other
-    op that fails fails the cell."""
-
-    def __init__(self):
-        super().__init__()
-        self.fallbacks: dict = {}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor, Replicate
-        from torch.utils._pytree import tree_map
-
-        kwargs = kwargs or {}
-        key = str(func)
-        if key not in REPLICATE_OK or \
-                not any(issubclass(t, DTensor) for t in types):
-            return func(*args, **kwargs)
-        try:
-            return func(*args, **kwargs)
-        except (RuntimeError, ValueError, IndexError):
-            self.fallbacks[key] = self.fallbacks.get(key, 0) + 1
-
-        def rep(x):
-            if isinstance(x, DTensor):
-                return x.redistribute(x.device_mesh,
-                                      [Replicate()] * x.device_mesh.ndim)
-            return x
-
-        return func(*tree_map(rep, args), **tree_map(rep, kwargs))
 
 
 def count_step(run, *, external=()) -> dict:

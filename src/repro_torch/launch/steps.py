@@ -35,7 +35,9 @@ from repro_torch.models.model import LM
 from repro_torch.models.model import decode_step as model_decode_step
 from repro_torch.models.model import prefill
 from repro_torch.models.sharding import param_pspec
-from repro_torch.models.shardctx import gathered, use_mesh
+from repro_torch.models.shardctx import (
+    ReplicateOnFailure, is_dtensor, gathered, use_mesh,
+)
 from repro_torch.optim.adam import _tree_leaves, _tree_map, clip_by_global_norm
 
 
@@ -64,6 +66,25 @@ def train_state_shardings(mesh, state: TrainState) -> TrainState:
     step replicated."""
     ps = {k: param_pspec(mesh, k, tuple(p.shape)) for k, p in state.params.items()}
     return TrainState(params=ps, mu=dict(ps), nu=dict(ps), step=())
+
+
+def place_train_state(mesh, state: TrainState) -> TrainState:
+    """A host-canonical TrainState (full tensors, the same on every rank)
+    placed on `mesh` as DTensors: parameters and both moments laid out by
+    `param_pspec` (`train_state_shardings`), the step replicated. Each
+    rank keeps its own shard of its full copy and nothing is communicated
+    (`train.elastic.reshard`). The first placement and a resume both go
+    through here, so a checkpoint written on one mesh restores onto
+    another."""
+    from repro_torch.train.elastic import reshard
+
+    def pspec(path: str, leaf) -> tuple:
+        # checkpoint paths: .params['blocks.0.mlp.wi'], .mu[...], .nu[...], .step
+        if path == ".step":
+            return ()
+        return param_pspec(mesh, path[path.index("['") + 2:-2], tuple(leaf.shape))
+
+    return reshard(state, mesh, pspec)
 
 
 def _unflatten_like(template, leaves):
@@ -123,10 +144,46 @@ def _bound(lm: LM, params: dict, *, grad: bool = True):
 
 
 def _slice_batch(batch: dict, i: int, mb: int) -> dict:
+    """Microbatch i of mb: rows [i * n, (i + 1) * n) of the batch, or of
+    each rank's local rows for a batch-sharded DTensor."""
     def one(x):
-        n = x.shape[0] // mb
-        return x[i * n:(i + 1) * n]
+        if not is_dtensor(x):
+            n = x.shape[0] // mb
+            return x[i * n:(i + 1) * n]
+        from torch.distributed.tensor import DTensor
+
+        loc = x.to_local()
+        n = loc.shape[0] // mb
+        return DTensor.from_local(loc[i * n:(i + 1) * n], x.device_mesh,
+                                  x.placements, run_check=False)
     return {k: one(v) for k, v in batch.items()}
+
+
+def _replicated(x):
+    """A DTensor metric as a replicated one (partial sums reduced); a plain
+    tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate()] * x.device_mesh.ndim
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+@contextlib.contextmanager
+def _dtensor_step(fallbacks: dict):
+    """Around a step on DTensor state: a plain tensor made inside the step
+    (positions, masks, constants, the same on every rank) acts as a
+    replicated one, and an op of `shardctx.REPLICATE_OK` that DTensor
+    cannot shard runs on replicated operands; each such op is counted
+    into `fallbacks`."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mode = ReplicateOnFailure()
+    with implicit_replication(), mode:
+        yield
+    for k, n in mode.fallbacks.items():
+        fallbacks[k] = fallbacks.get(k, 0) + n
 
 
 def make_train_step(cfg, mesh=None, *, lr=3e-4, microbatch: int = 1):
@@ -134,7 +191,16 @@ def make_train_step(cfg, mesh=None, *, lr=3e-4, microbatch: int = 1):
     (with `microbatch > 1`, the mean over equal batch slices, each slice's
     backward run in turn), `clip_by_global_norm(grads, 1.0)`, then
     `_adamw`, under `use_mesh(mesh)`. Metrics are 0-d tensors: loss,
-    grad_norm and the model's (ce, moe_aux)."""
+    grad_norm and the model's (ce, moe_aux).
+
+    On DTensor state (`place_train_state`) and a batch sharded over the
+    data axes (`data.tokens.TokenPipeline` with a mesh) the same code
+    trains over the mesh: each weight is all-gathered over the FSDP axes
+    where the model reads it (`_bound`), its gradient comes back laid out
+    as the weight (the partial sums reduce-scattered), AdamW runs on each
+    rank's shards, and the metrics come out replicated: the global
+    batch's values on every rank. `step_fn.fallbacks` counts the ops
+    that ran on replicated operands (`shardctx.REPLICATE_OK`)."""
     skeleton = LM(cfg, device="meta")
 
     def loss_and_grads(params, batch):
@@ -143,13 +209,16 @@ def make_train_step(cfg, mesh=None, *, lr=3e-4, microbatch: int = 1):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a parameter the loss never reads (OLMo's placeholder norm weight)
         # gets a zero gradient, as under jax.grad
-        grads = [torch.zeros_like(a) if g is None else g
+        grads = [torch.zeros_like(a) if g is None else _laid_out_as(g, a)
                  for a, g in zip(leaves, grads)]
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+        return (_replicated(loss.detach()),
+                {k: _replicated(v.detach()) for k, v in metrics.items()},
                 dict(zip(params, grads)))
 
     def step_fn(state: TrainState, batch: dict):
-        with use_mesh(mesh):
+        sharded = is_dtensor(state.step)
+        with use_mesh(mesh), (_dtensor_step(step_fn.fallbacks) if sharded
+                              else contextlib.nullcontext()):
             if microbatch == 1:
                 loss, metrics, grads = loss_and_grads(state.params, batch)
             else:
@@ -170,9 +239,18 @@ def make_train_step(cfg, mesh=None, *, lr=3e-4, microbatch: int = 1):
             params, mu, nu, step = _adamw(state.params, grads, state.mu,
                                           state.nu, state.step, lr=lr)
         return (TrainState(params, mu, nu, step),
-                {"loss": loss, "grad_norm": gnorm, **metrics})
+                {"loss": loss, "grad_norm": _replicated(gnorm), **metrics})
 
+    step_fn.fallbacks = {}
     return step_fn
+
+
+def _laid_out_as(g, p):
+    """A DTensor gradient in its parameter's layout (partial sums reduced
+    or reduce-scattered); a plain one as it is."""
+    if not is_dtensor(g) or list(g.placements) == list(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def _serving(fn):

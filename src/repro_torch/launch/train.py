@@ -36,19 +36,31 @@ Any other `--arch` trains that LM (the reference's LM path):
         [--full] [--steps 100] [--batch 8] [--seq 128] [--lr 1e-3] \
         [--ckpt checkpoints] [--ckpt-every 100] [--log-every 10] [--device cpu]
 
+    torchrun --nproc_per_node=N -m repro_torch.launch.train \
+        --arch smollm-360m --full [--data D] [--model M] ...
+
 Without `--full` the config is `reduced(ce_chunk=seq, attn_chunk=seq)`.
-The path is the host mesh (one rank), `launch.steps.make_train_step` on
-bf16 weights with fp32 AdamW moments, the synthetic `TokenPipeline`
+The path is the host mesh over the world, `launch.steps.make_train_step`
+on bf16 weights with fp32 AdamW moments, the synthetic `TokenPipeline`
 (seed 0), and `train.trainer.run_train_loop` with checkpoints under
 `<ckpt>/<arch name>`: it resumes from the latest one, skips a step whose
 metrics are not finite, and on SIGTERM / SIGINT writes a final checkpoint
-and stops. It prints the reference's lines plus tokens/s (at the median
-accepted step: checkpoint writes and set-up stay out), and `main` returns
-a report (losses, steps run and skipped, the final state, step seconds,
-tokens/s). `main(argv, wrap_step=f)` trains with `f(step_fn)` in place of
-the step function (a hook for tests and the card's smoke run). The LM path
-runs on one rank: data-parallel LM training over several ranks is not
-ported, and a larger world raises.
+and stops. `--batch` is the global batch. On a world of one the state and
+the batches are plain tensors. Over N ranks the mesh is (data, model) with
+`--data` = N / `--model` by default, as the reference's host mesh: the
+state is placed as DTensors (`launch.steps.place_train_state`: parameters
+and both AdamW moments FSDP over the data axes and TP over model by
+`models.sharding.param_pspec`, the step replicated), each rank feeds its
+rows of the global batch (`TokenPipeline` with the mesh), and the loop
+agrees across the ranks once a step; its checkpoints are gathered and
+written by rank 0 in the one-rank layout, so a run resumes on another
+world size. Rank 0 prints the reference's lines plus tokens/s over the
+global batch (at the median accepted step: checkpoint writes and set-up
+stay out), and `main` returns the same report on every rank (losses,
+steps run and skipped, the final state, step seconds, tokens/s, the mesh
+and the ops that ran on replicated operands). `main(argv, wrap_step=f)`
+trains with `f(step_fn)` in place of the step function (a hook for tests
+and the card's smoke run).
 """
 
 from __future__ import annotations
@@ -123,8 +135,10 @@ def _train_lm(args, wrap_step=None) -> dict:
     import torch.distributed as dist
 
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.mesh import data_axes, make_host_mesh, mesh_axis_sizes
+    from repro_torch.launch.steps import (
+        init_train_state, make_train_step, place_train_state,
+    )
     from repro_torch.models import count_params, get_arch
     from repro_torch.train.trainer import TrainLoopConfig, run_train_loop
 
@@ -132,19 +146,23 @@ def _train_lm(args, wrap_step=None) -> dict:
     if not args.full:
         cfg = cfg.reduced(ce_chunk=args.seq, attn_chunk=args.seq)
     mesh = make_host_mesh(data=args.data, model=args.model, device=args.device)
-    if dist.get_world_size() != 1:
-        raise NotImplementedError(
-            "the LM path trains on one rank; data-parallel LM training over "
-            f"{dist.get_world_size()} ranks is not ported")
-    print(f"[train] arch={cfg.name} params={count_params(cfg):,} "
-          f"mesh={dict(zip(mesh.axis_names, mesh.shape))}", flush=True)
+    lead = mesh.rank == 0
+    sharded = dist.get_world_size() > 1
+    if lead:
+        print(f"[train] arch={cfg.name} params={count_params(cfg):,} "
+              f"mesh={dict(zip(mesh.axis_names, mesh.shape))}", flush=True)
 
     step = make_train_step(cfg, mesh, lr=args.lr)
+    fallbacks = step.fallbacks
     if wrap_step is not None:
         step = wrap_step(step)
     gen = torch.Generator(device=mesh.device).manual_seed(0)
     state = init_train_state(cfg, gen, device=mesh.device)
-    pipe = TokenPipeline(mesh, cfg.vocab, args.batch, args.seq)
+    place = (lambda st: place_train_state(mesh, st)) if sharded else None
+    if sharded:
+        state = place(state)
+    pipe = TokenPipeline(mesh if sharded else None, cfg.vocab, args.batch,
+                         args.seq, data_axes=data_axes(mesh), device=mesh.device)
     batches = ({"tokens": b.tokens, "targets": b.targets} for b in pipe)
     tokens_per_step = args.batch * args.seq
     loop = TrainLoopConfig(total_steps=args.steps,
@@ -155,7 +173,7 @@ def _train_lm(args, wrap_step=None) -> dict:
     t0 = time.time()
     try:
         res = run_train_loop(step, state, batches, loop,
-                             log_fn=lambda m: print(m, flush=True))
+                             log_fn=lambda m: print(m, flush=True), place=place)
     finally:
         pipe.close()
     seconds = time.time() - t0
@@ -163,14 +181,16 @@ def _train_lm(args, wrap_step=None) -> dict:
     # waits for the card): checkpoint writes and set-up stay out
     step_s = float(np.median(res.step_seconds)) if res.step_seconds else float("nan")
     tok_s = tokens_per_step / step_s
-    print(f"[train] done: {res.steps_run} steps, {res.skipped} skipped "
-          f"tokens/s={tok_s:,.0f} (median step {step_s * 1e3:.1f} ms; "
-          f"{seconds:.1f} s in the loop)", flush=True)
+    if lead:
+        print(f"[train] done: {res.steps_run} steps, {res.skipped} skipped "
+              f"tokens/s={tok_s:,.0f} (median step {step_s * 1e3:.1f} ms; "
+              f"{seconds:.1f} s in the loop)", flush=True)
     return {"arch": cfg.name, "steps_run": res.steps_run,
             "skipped": res.skipped,
             "losses": [float(m["loss"]) for m in res.metrics_history],
             "state": res.state, "seconds": seconds, "tokens_per_s": tok_s,
-            "step_seconds": res.step_seconds, "ckpt_dir": loop.ckpt_dir}
+            "step_seconds": res.step_seconds, "ckpt_dir": loop.ckpt_dir,
+            "mesh": mesh_axis_sizes(mesh), "fallbacks": dict(fallbacks)}
 
 
 def prepare_gp_data(mesh, X_host, y_host, *, backend, gp_mode, kernel,

@@ -19,9 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .layers import normal_init
+from .shardctx import checkpoint
 
 
 def _repeat_kv(k, n_rep: int):
@@ -73,7 +73,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0, chunk: int = 1024,
     if nchunks == 1:
         out = one_chunk(0, qc[0])[None]
     elif torch.is_grad_enabled():
-        out = torch.stack([checkpoint(one_chunk, ci, qc[ci], use_reentrant=False)
+        out = torch.stack([checkpoint(one_chunk, ci, qc[ci])
                            for ci in range(nchunks)])
     else:
         out = torch.stack([one_chunk(ci, qc[ci]) for ci in range(nchunks)])

@@ -6,8 +6,9 @@ The counterpart of `repro.models.model`. `init_params` returns an
 leading L axis), `final_norm`, and for the enc-dec family `enc_blocks` and
 `enc_norm`; the default dtype is bf16 as in the reference. The reference's
 `lax.scan` over layers becomes a plain loop, and its per-layer
-`jax.checkpoint` (`cfg.remat`) becomes `torch.utils.checkpoint` per block:
-the backward keeps each block's input and recomputes its internals.
+`jax.checkpoint` (`cfg.remat`) becomes `torch.utils.checkpoint` per block
+(`shardctx.checkpoint`: the recompute runs under the forward's mesh): the
+backward keeps each block's input and recomputes its internals.
 `_tie_layer_params` is left out: it is a GSPMD scheduling device (it keeps
 the compiler from hoisting FSDP all-gathers out of the layer loop) with
 bitwise identity, and an eager loop has nothing to hoist.
@@ -37,14 +38,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import qkv_proj
 from .blocks import Block, init_layer_cache
 from .config import ArchConfig
 from .layers import apply_norm, apply_positional, norm_param, normal_init, positions_for
-from .shardctx import shard, shard_hidden
+from .shardctx import checkpoint, shard, shard_hidden
 from .ssd import _causal_conv, _split_proj
 
 
@@ -117,7 +117,7 @@ def _run_stack(cfg, blocks, h, positions, wins, enc_out=None, *, causal=True):
     for block, win in zip(blocks, wins):
         if remat:
             h, a = checkpoint(block, cfg, h, positions, win, enc_out,
-                              causal=causal, use_reentrant=False)
+                              causal=causal)
         else:
             h, a = block(cfg, h, positions, win, enc_out, causal=causal)
         h = shard_hidden(h, sp=False)
@@ -179,8 +179,7 @@ def _chunked_ce(cfg, embed, h, targets):
         if torch.is_grad_enabled():
             # checkpointed: the backward otherwise saves every chunk's fp32
             # logits; it recomputes them instead
-            total = total + checkpoint(_ce_chunk, hx, tx, embed,
-                                       use_reentrant=False)
+            total = total + checkpoint(_ce_chunk, hx, tx, embed)
         else:
             total = total + _ce_chunk(hx, tx, embed)
     return total / (b * s)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import mlp_apply, mlp_params, normal_init
-from .shardctx import current_mesh, local, shard
+from .shardctx import axis_size, current_mesh, local, shard
 
 # MoE.forward under a mesh: each weight's layout on the rank's batch shard
 # (the expert hidden dim over model)
@@ -67,22 +67,27 @@ class MoE(nn.Module):
     def forward(self, x, *, top_k: int, capacity_factor: float):
         """moe_apply on x (B, S, D); under a mesh, on each rank's batch
         shard (routing is per sequence, so it stays local) with the expert
-        hidden dim over model: the output is a partial sum over model, the
-        aux loss a partial mean over the batch axes."""
+        hidden dim over model: the output is a partial sum over model. The
+        aux loss is a partial sum over every axis: each rank's batch-shard
+        mean divided by the rank count (the batch shards are equal), so
+        that its gradient splits over the ranks as the output's does."""
         if current_mesh() is None:
             return moe_apply(self, x, top_k=top_k, capacity_factor=capacity_factor)
         names, ws = zip(*self.named_parameters())
         tok = ("fsdp", None, None)
+        ranks = axis_size("pod") * axis_size("data") * axis_size("model")
 
         def run(x_, *ws_):
             p = dict(zip(names, ws_))
             if "shared.wi" in p:
                 p["shared"] = {k: p.pop(f"shared.{k}") for k in ("wi", "wg", "wo")}
-            return moe_apply(p, x_, top_k=top_k, capacity_factor=capacity_factor)
+            out, aux = moe_apply(p, x_, top_k=top_k,
+                                 capacity_factor=capacity_factor)
+            return out, aux / ranks
 
         return local(run, (x, *ws), (tok, *(_TP_SPECS[n] for n in names)),
                      [tok, ()], [{"model": "sum"},
-                                 {"pod": "avg", "data": "avg"}])
+                                 {"pod": "sum", "data": "sum", "model": "sum"}])
 
 
 def moe_route(p, x, *, top_k: int, capacity_factor: float):

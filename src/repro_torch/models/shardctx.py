@@ -13,12 +13,19 @@ mesh-agnostic.
 A spec entry is "fsdp" -> ("pod", "data"), "tp" -> "model", or None.
 GSPMD pads a dim that an axis set does not divide; DTensor shards it
 unevenly, which is its own form of the same layout.
+
+`checkpoint` is the model's activation checkpoint, recomputing under the
+forward's mesh. `ReplicateOnFailure` runs the few ops DTensor cannot
+shard (`REPLICATE_OK`) on replicated operands, for the sharded train step
+and the dry run alike.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 _STATE = threading.local()
 
@@ -37,6 +44,25 @@ def use_mesh(mesh):
         _STATE.mesh = prev
 
 
+def checkpoint(fn, *args, **kwargs):
+    """`torch.utils.checkpoint.checkpoint(fn, *args)` (non-reentrant) whose
+    recompute runs under the mesh installed at the forward. The backward
+    of CUDA tensors runs on the autograd engine's device thread, which
+    does not see this thread's mesh: a recompute there would skip every
+    layout point (`local` would hand `fn` DTensors, `shard` would leave
+    layouts as they come) and compute other tensors than the forward
+    saved. On the CPU the backward runs on the calling thread."""
+    from torch.utils.checkpoint import checkpoint as _checkpoint
+
+    mesh = current_mesh()
+
+    def run(*a, **k):
+        with use_mesh(mesh):
+            return fn(*a, **k)
+
+    return _checkpoint(run, *args, use_reentrant=False, **kwargs)
+
+
 def _axes(mesh, want):
     if isinstance(want, str):
         want = (want,)
@@ -46,7 +72,7 @@ def _axes(mesh, want):
     return got if len(got) > 1 else got[0]
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
@@ -69,7 +95,7 @@ def resolve(mesh, spec) -> tuple:
 def shard(x, *spec):
     """Redistribute a DTensor to `spec` under an installed mesh; else x."""
     mesh = current_mesh()
-    if mesh is None or not _is_dtensor(x):
+    if mesh is None or not is_dtensor(x):
         return x
     from .sharding import placements
 
@@ -86,7 +112,7 @@ def gathered(w):
     backward reduce-scatters the gradient back). Identity with no mesh or
     on a plain tensor."""
     mesh = current_mesh()
-    if mesh is None or not _is_dtensor(w):
+    if mesh is None or not is_dtensor(w):
         return w
     from torch.distributed.tensor import Replicate
 
@@ -117,7 +143,7 @@ def axis_index(axis: str) -> int:
 def spec_of(x) -> tuple:
     """A DTensor's layout as a spec (one entry per dim: None, an axis name,
     or a tuple of axis names in mesh order); () for a plain tensor."""
-    if not _is_dtensor(x):
+    if not is_dtensor(x):
         return ()
     from torch.distributed.tensor import Shard
 
@@ -135,14 +161,21 @@ def local(fn, args: tuple, specs: tuple, out_spec, partial=None):
     inputs, every tensor argument is redistributed to its spec (None for a
     non-tensor argument), `fn` runs on the local tensors, and its output is
     a DTensor of `out_spec` (one entry per output dim; a list of specs for
-    a tuple of outputs). `partial` ({axis: "sum" | "avg"}, or a list of
-    those per output) marks mesh axes over which an output holds partial
-    values. For a region DTensor cannot propagate a layout through
-    (chunked attention on head shards, the SSD chunk scan, MoE routing on a
-    batch shard), where the reference leaves the partitioning to GSPMD.
-    With no mesh or on plain tensors, fn(*args)."""
+    a tuple of outputs). `partial` ({axis: "sum"}, or a list of those per
+    output) marks mesh axes over which an output holds partial sums. For a
+    region DTensor cannot propagate a layout through (chunked attention on
+    head shards, the SSD chunk scan, MoE routing on a batch shard), where
+    the reference leaves the partitioning to GSPMD. With no mesh or on
+    plain tensors, fn(*args).
+
+    The work is split over the mesh axes on which the outputs are sharded
+    or partial (every output must agree on them). An input replicated over
+    such an axis gets, on each rank, only the gradient of that rank's part
+    of the work, so its gradient is a partial sum over the axis: a
+    sequence-split attention's K / V, the weights of a batch-split scan,
+    the input of a model-split expert MLP (Megatron's "f" operator)."""
     mesh = current_mesh()
-    if mesh is None or not any(_is_dtensor(a) for a in args):
+    if mesh is None or not any(is_dtensor(a) for a in args):
         return fn(*args)
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
@@ -160,8 +193,17 @@ def local(fn, args: tuple, specs: tuple, out_spec, partial=None):
     outs = out_spec if multi else [out_spec]
     parts = partial if isinstance(partial, list) else [partial] * len(outs)
     in_pl = tuple(None if s is None else pl(s) for s in specs)
-    return local_map(fn, out_placements=tuple(pl(o, p) for o, p in zip(outs, parts)),
-                     in_placements=in_pl, device_mesh=mesh.device_mesh,
+    out_pl = tuple(pl(o, p) for o, p in zip(outs, parts))
+    split = {i for o in out_pl for i, p in enumerate(o) if not p.is_replicate()}
+    for o in out_pl:
+        if any(o[i].is_replicate() for i in split):
+            raise ValueError(f"the outputs of a local region disagree on the "
+                             f"axes its work is split over: {out_pl}")
+    grad_pl = tuple(None if p is None else tuple(
+        Partial("sum") if i in split and q.is_replicate() else q
+        for i, q in enumerate(p)) for p in in_pl)
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh.device_mesh,
                      redistribute_inputs=True)(*args)
 
 
@@ -175,3 +217,55 @@ def shard_hidden(h, *, sp: bool = True):
 def shard_heads(x):
     """(B, S, H, hd): heads over model."""
     return shard(x, "fsdp", None, "tp", None)
+
+
+# the ops that may run on replicated operands when DTensor cannot shard
+# them, and why:
+#  - a view that splits a model-sharded feature dim into a head count the
+#    axis does not divide (smollm's 15 query and 5 KV heads over 16), or
+#    that flattens a local shard a redistribute left non-contiguous;
+#  - on torch 2.11 (the card's host), the index_put of an embedding row
+#    lookup's backward with a batch-sharded index ("Shard dim -1 ... must
+#    be normalized"), and the SSD chunk scan's pad and unsqueeze inside
+#    `local_map` (placements of one entry on a two-axis mesh); torch 2.13
+#    shards all three
+REPLICATE_OK = frozenset({
+    "aten.view.default", "aten._unsafe_view.default",
+    "aten.index_put.default", "aten.constant_pad_nd.default",
+    "aten.unsqueeze.default"})
+
+
+class ReplicateOnFailure(TorchDispatchMode):
+    """Runs an op of `REPLICATE_OK` that DTensor cannot shard on replicated
+    operands: the op is retried with every DTensor argument redistributed
+    to `Replicate`, as GSPMD all-gathers an operand it cannot partition.
+    `fallbacks` counts each op that took this path. Any other op that
+    fails raises. The sharded train step (`launch.steps`) and the dry run's
+    counter (`launch.dryrun`) run under it; nested, the outer mode sees a
+    failure first and takes it."""
+
+    def __init__(self):
+        super().__init__()
+        self.fallbacks: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.utils._pytree import tree_map
+
+        kwargs = kwargs or {}
+        key = str(func)
+        if key not in REPLICATE_OK or \
+                not any(issubclass(t, DTensor) for t in types):
+            return func(*args, **kwargs)
+        try:
+            return func(*args, **kwargs)
+        except (RuntimeError, ValueError, IndexError):
+            self.fallbacks[key] = self.fallbacks.get(key, 0) + 1
+
+        def rep(x):
+            if isinstance(x, DTensor):
+                return x.redistribute(x.device_mesh,
+                                      [Replicate()] * x.device_mesh.ndim)
+            return x
+
+        return func(*tree_map(rep, args), **tree_map(rep, kwargs))

@@ -78,7 +78,10 @@ def _tree_map(fn, tree):
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled so their global L2 norm is at most `max_norm`, the
     norm before scaling). `grads` is a dict / tuple / NamedTuple tree of
-    tensors; the norm is fp32 and each leaf keeps its dtype."""
+    tensors; the norm is fp32 and each leaf keeps its dtype. Over DTensor
+    leaves of any layouts the sum of squares is the global one on every
+    rank: a sharded leaf's local sum is a partial sum, which DTensor
+    reduces over its mesh before the square root."""
     leaves = _tree_leaves(grads)
     gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)

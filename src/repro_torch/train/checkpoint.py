@@ -12,6 +12,12 @@ reference's `jax.tree_util.keystr` paths — ``['params'].raw_noise``,
 so that each package reads the other's files. `CheckpointManager` saves
 every k steps, keeps the newest K complete checkpoints and resumes from the
 latest, as the reference's.
+
+A tree with DTensor leaves (a state sharded over a mesh) is saved by every
+rank of the world together: each rank gathers every leaf's full array, in
+the same order, rank 0 alone writes the files (and runs the retention),
+and a barrier follows before any rank goes on. The files are the one-rank
+layout, so a checkpoint of any mesh restores onto any other.
 """
 
 from __future__ import annotations
@@ -48,10 +54,31 @@ def flatten_with_keys(tree: Any) -> list[tuple[str, Any]]:
     return out
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sharded(tree) -> bool:
+    """True if a leaf of `tree` is a DTensor: saving it is collective."""
+    return any(_is_dtensor(v) for _, v in flatten_with_keys(tree))
+
+
+def _writes(sharded: bool) -> bool:
+    """This process writes: always for a plain tree, else rank 0 only."""
+    import torch.distributed as dist
+
+    return not sharded or not dist.is_initialized() or dist.get_rank() == 0
+
+
 def to_numpy(leaf) -> np.ndarray:
     """A leaf as a numpy array; bf16 (which numpy lacks) as its raw uint16
-    bits, which `from_numpy` turns back into bf16 bit for bit."""
+    bits, which `from_numpy` turns back into bf16 bit for bit. A DTensor
+    gives its full array (a gather: every rank of its mesh calls this)."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).numpy().view(np.uint16)
@@ -61,8 +88,9 @@ def to_numpy(leaf) -> np.ndarray:
 
 def from_numpy(arr: np.ndarray, like):
     """A restored array as a leaf like `like`: a tensor of its dtype on its
-    device (bf16 from the uint16 bits `to_numpy` wrote); any other
-    template leaf gets the array itself."""
+    device (bf16 from the uint16 bits `to_numpy` wrote; the full tensor
+    for a DTensor template, which the caller places); any other template
+    leaf gets the array itself."""
     if not isinstance(like, torch.Tensor):
         return arr
     if like.dtype == torch.bfloat16 and arr.dtype == np.uint16:
@@ -82,15 +110,27 @@ def tree_from_numpy(template: Any, arrays: Any):
 
 def save_checkpoint(directory: str, step: int, tree: Any,
                     meta: dict | None = None) -> str:
-    """Atomically write `tree` (nested dicts/NamedTuples of tensors) at `step`."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically write `tree` (nested dicts/NamedTuples of tensors) at
+    `step`. A tree with DTensor leaves is saved collectively (see the
+    module docstring): every rank calls this, rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
+    sharded = _sharded(tree)
+    arrays = {k: to_numpy(v) for k, v in flatten_with_keys(tree)}
+    if _writes(sharded):
+        _write(final, step, arrays, meta)
+    if sharded:
+        import torch.distributed as dist
+
+        dist.barrier()
+    return final
+
+
+def _write(final: str, step: int, arrays: dict, meta: dict | None) -> None:
+    os.makedirs(os.path.dirname(final), exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    arrays = {k: to_numpy(v) for k, v in flatten_with_keys(tree)}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
@@ -108,7 +148,6 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 def _complete_steps(directory: str) -> list[int]:
@@ -168,7 +207,8 @@ class CheckpointManager:
         if not force and (step % self.save_every != 0):
             return None
         path = save_checkpoint(self.directory, step, tree, meta)
-        self._retain()
+        if _writes(_sharded(tree)):
+            self._retain()
         return path
 
     def restore_or_init(self, template: Any) -> tuple[Any, int, dict]:

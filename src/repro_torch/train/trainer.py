@@ -17,6 +17,16 @@ is one). Responsibilities that belong to the harness, not the model:
   * throughput accounting (steps/s, tokens/s)
 
 Reading the metrics to check them is the loop's one host sync per step.
+
+Over a world of several ranks (the default process group) every rank runs
+the loop, and every rank must take the same decision at every step, or the
+next collective deadlocks. Once a step the ranks combine their stop
+request, timeout and non-finite flags (a MAX all-reduce of three numbers;
+none on a world of one), so a signal or a slow step on one rank stops or
+skips every rank at the same step. A checkpoint gathers a sharded state
+on every rank and rank 0 writes it (`train.checkpoint`); a resume hands
+the restored host-canonical state to `place` (the same placement as the
+run's first). Log lines come from rank 0.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import CheckpointManager, flatten_with_keys, tree_from_numpy
 
@@ -52,12 +63,36 @@ class TrainLoopResult(NamedTuple):
 
 
 def _to_host(metrics):
-    """Metrics as numpy values (tensors read once, in one sync)."""
+    """Metrics as numpy values (tensors read once, in one sync; a DTensor
+    metric's full value)."""
     if isinstance(metrics, dict):
         return {k: _to_host(v) for k, v in metrics.items()}
     if isinstance(metrics, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(metrics, DTensor):
+            metrics = metrics.full_tensor()
         return metrics.detach().to("cpu", torch.float64).numpy()
     return np.asarray(metrics)
+
+
+def _world() -> tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without."""
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _agree(flags: list) -> list:
+    """Each flag true if it is true on any rank: one MAX all-reduce over the
+    world (on the card for NCCL), nothing on a world of one."""
+    if _world()[1] == 1:
+        return [bool(f) for f in flags]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([float(f) for f in flags], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [bool(v) for v in t.tolist()]
 
 
 def _leaves(tree) -> list:
@@ -67,10 +102,14 @@ def _leaves(tree) -> list:
 
 
 def run_train_loop(step_fn: Callable, state, batches, cfg: TrainLoopConfig,
-                   *, log_fn=print) -> TrainLoopResult:
+                   *, log_fn=print, place: Callable | None = None) -> TrainLoopResult:
     """Run `step_fn` over `batches` (an iterator) with fault tolerance. A
     resumed state takes each checkpointed array as a tensor of the given
-    state's leaf's dtype and device (`checkpoint.tree_from_numpy`)."""
+    state's leaf's dtype and device (`checkpoint.tree_from_numpy`), then
+    goes through `place` where one is given (a sharded run's placement of
+    a host-canonical state onto its mesh)."""
+    if _world()[0] != 0:
+        log_fn = _silent
     manager = None
     start_step = 0
     if cfg.ckpt_dir:
@@ -79,9 +118,11 @@ def run_train_loop(step_fn: Callable, state, batches, cfg: TrainLoopConfig,
         arrays, start_step, _ = manager.restore_or_init(state)
         if start_step:
             state = tree_from_numpy(state, arrays)
+            if place is not None:
+                state = place(state)
             log_fn(f"[trainer] resumed from step {start_step}")
 
-    stop_requested = {"flag": False}
+    stop_requested = {"flag": False}   # this rank's; the loop reads `stop`
 
     def _handler(signum, frame):
         stop_requested["flag"] = True
@@ -101,8 +142,9 @@ def run_train_loop(step_fn: Callable, state, batches, cfg: TrainLoopConfig,
     step = start_step
     saved = start_step
     t_last = time.time()
+    stop = False
     try:
-        while step < cfg.total_steps and not stop_requested["flag"]:
+        while step < cfg.total_steps and not stop:
             batch = next(batches)
             t0 = time.time()
             new_state, metrics = step_fn(state, batch)
@@ -111,6 +153,7 @@ def run_train_loop(step_fn: Callable, state, batches, cfg: TrainLoopConfig,
 
             bad = any(not np.all(np.isfinite(v)) for v in _leaves(metrics))
             timed_out = (cfg.step_timeout_s is not None and dt > cfg.step_timeout_s)
+            stop, bad, timed_out = _agree([stop_requested["flag"], bad, timed_out])
             if bad or timed_out:
                 skipped += 1
                 consecutive_skips += 1
@@ -147,6 +190,10 @@ def run_train_loop(step_fn: Callable, state, batches, cfg: TrainLoopConfig,
     return TrainLoopResult(state=state, steps_run=step - start_step,
                            skipped=skipped, metrics_history=history,
                            step_seconds=seconds)
+
+
+def _silent(*_):
+    pass
 
 
 def _fmt(metrics) -> str:

@@ -2,7 +2,8 @@
 
 `spawn(name, world, payload, tmp)` starts `world` processes with
 `torch.multiprocessing.spawn`; each joins a gloo group through a `file://`
-store under `tmp`, runs the function `name` of this module on the payload,
+store under `tmp`, runs the function `name` of this module (or
+`module:function` of another rank-program module) on the payload,
 and saves what it returns to `tmp/out<rank>.pt`, which `spawn` loads and
 returns in rank order. The assertions run in the parent (the test files).
 This module imports torch and repro_torch only, so the ranks never load JAX.
@@ -36,7 +37,14 @@ def _entry(rank, world, store, name, in_path, out_dir):
                             world_size=world,
                             timeout=datetime.timedelta(seconds=240))
     try:
-        out = globals()[name](rank, torch.load(in_path, weights_only=False))
+        if ":" in name:
+            import importlib
+
+            mod, _, fn = name.partition(":")
+            fn = getattr(importlib.import_module(mod), fn)
+        else:
+            fn = globals()[name]
+        out = fn(rank, torch.load(in_path, weights_only=False))
         torch.save(out, os.path.join(out_dir, f"out{rank}.pt"))
     finally:
         dist.destroy_process_group()
