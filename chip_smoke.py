@@ -36,7 +36,12 @@ caught and skipped):
    `fit_posterior` (precond rank 100, Lanczos rank 128, tol 0.01, <= 400 CG
    iterations), saves and loads the artifact, verifies a chunk-1024 engine
    against the unchunked result (<= 1e-5) and sends 200 requests x 8 points
-   from 8 clients through the MicroBatcher. The second run loads that
+   from 8 clients through the MicroBatcher. Then `PredictionEngine.from_dir`
+   on the saved artifact (chunk 1024): its `predict_mean` on 8192 of the
+   draw's test rows must equal `predict(...)[0]` of an engine built on
+   `load_artifact` bit for bit, with B1 launched (counts set to 0 just
+   before, read just after); its backend, kernel and fused passes
+   (`mvm_plan(...).num_fused_passes`) are printed. The second run loads that
    artifact (no second training) and serves the same traffic through the
    ServeFleet (`--scheduler continuous --models 2 --workers 2`; model m1
    refits the caches on n - 256 rows), then absorbs 64 rows into m0
@@ -125,7 +130,10 @@ caught and skipped):
    the Morton-sorting engine (chunk 1024) is checked against the unchunked
    result (<= 1e-5); 200 requests x 8 points from 8 clients go through the
    MicroBatcher. B4's launch counter is set to 0 just before and read just
-   after; it must be > 0. Then the engine's cross-covariance launch for
+   after; it must be > 0. Then `PredictionEngine.from_dir` on the saved
+   artifact, as in phase 4: its `predict_mean` on the test points equals
+   the first engine's means bit for bit, with B4 launched (counts set to 0
+   just before, read just after). Then the engine's cross-covariance launch for
    one Morton-sorted 1024-query chunk (64-row query tiles against the
    256-row plan tiles, query rows repeated per column segment, t = 1 for
    the mean and t = 100 for the variance) is held against B4's plain
@@ -325,6 +333,7 @@ N_TRAIN = 1 << 16
 DATA_SEED = 0
 SPATIAL_N = 1 << 18
 SPATIAL_TEST = 4096
+FROM_DIR_QUERIES = 8192   # phase 4's queries for the from_dir engine
 SPATIAL_EXPR = "matern32 * wendland2"
 SPATIAL_STEPS = 2
 CROSSCHECK_N = 1 << 13
@@ -787,7 +796,41 @@ def time_square(components, scalars, X, v, r, reps=3, plain_reps=1) -> dict:
             reps, plain_reps)]}
 
 
-def phase_serve() -> dict:
+def from_dir_check(tag, art_dir, Xq, want, counts, kernel) -> dict:
+    """`PredictionEngine.from_dir(art_dir)` on the card: its `predict_mean`
+    on the queries must equal `want`, the means of an engine built on
+    `load_artifact` the existing way, bit for bit. `counts` is the kernel
+    module whose launch counts are set to 0 just before `predict_mean` and
+    read just after; `kernel` must have been launched."""
+    from repro_torch.kernels.ops import mvm_plan
+    from repro_torch.serve import PredictionEngine
+
+    engine = PredictionEngine.from_dir(art_dir, chunk_size=1024, device=DEV)
+    engine.warmup()
+    torch.cuda.synchronize()
+    counts.reset_launch_counts()
+    got = engine.predict_mean(Xq)
+    torch.cuda.synchronize()
+    launches = dict(counts.launch_counts)
+    op = engine.op
+    passes = mvm_plan(op.kernel, op.params).num_fused_passes
+    same = bool(torch.equal(got, want))
+    log(f"[{tag}] from_dir engine: backend {engine.backend}, kernel "
+        f"{op.kernel}, fused passes {passes}, device {op.device}; "
+        f"predict_mean on {Xq.shape[0]} queries equals the load_artifact "
+        f"engine's means bit for bit: {same} (max abs "
+        f"{float(torch.max(torch.abs(got - want))):.3e}); launches {launches}")
+    if not same:
+        raise SystemExit(f"[{tag}] from_dir predict_mean differs from the "
+                         f"load_artifact engine's means")
+    if launches[kernel] <= 0:
+        raise SystemExit(f"[{tag}] {kernel} was never launched by the "
+                         f"from_dir engine: {launches}")
+    return {"backend": engine.backend, "fused_passes": passes,
+            "launches": launches, "bitwise": same}
+
+
+def phase_serve(X_test) -> dict:
     """The `serve_gp` launcher twice: closed (train, fit, save, serve through
     the MicroBatcher), then the continuous fleet on the saved artifact with
     two models and a 64-row `observe`. The counts are set to 0 just before
@@ -830,6 +873,19 @@ def phase_serve() -> dict:
                              f"main path")
     report["launches_total"] = launches
     report["artifact"] = art_dir
+
+    # the saved artifact through `PredictionEngine.from_dir`, against an
+    # engine built on `load_artifact` as the launcher builds its own
+    from repro_torch.serve import PredictionEngine, load_artifact
+
+    Xq = torch.as_tensor(np.asarray(X_test[:FROM_DIR_QUERIES], np.float32),
+                         device=DEV)
+    existing = PredictionEngine(load_artifact(art_dir, device=DEV),
+                                chunk_size=1024, device=DEV)
+    want = existing.predict(Xq)[0]
+    del existing
+    report["from_dir"] = from_dir_check("serve", art_dir, Xq, want, kmvm,
+                                        "kmvm")
 
     kmvm.reset_launch_counts()
     t0 = time.perf_counter()
@@ -918,16 +974,16 @@ def phase_autotune(art, y, X_test) -> dict:
     for t in AUTOTUNE_T:
         obs.registry().reset("autotune.")
         kmvm.reset_launch_counts()
-        split = autotune.autotune_tiles(components, n, d, t, **fp32)
+        split = autotune.autotune_tiles(components, n, n, d, t, **fp32)
         torch.cuda.synchronize()
         out["sweep_launches"][t] = dict(kmvm.launch_counts)
         first = obs.registry().snapshot()
-        again = autotune.autotune_tiles(components, n, d, t, **fp32)
+        again = autotune.autotune_tiles(components, n, n, d, t, **fp32)
         memo = obs.registry().snapshot()
         autotune.clear_memo()
-        disk = autotune.autotune_tiles(components, n, d, t, **fp32)
+        disk = autotune.autotune_tiles(components, n, n, d, t, **fp32)
         snap = obs.registry().snapshot()
-        key = autotune.cache_key(components, n, d, t, **fp32)
+        key = autotune.cache_key(components, n, n, d, t, **fp32)
         with open(os.path.join(cdir, autotune.key_hash(key) + ".json")) as f:
             entry = json.load(f)
         out["splits"][t] = split
@@ -1634,6 +1690,8 @@ def phase_spatial(X, y, Xte, lte) -> dict:
     launches = dict(kmvm_sparse.launch_counts)
     other = dict(kmvm.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    from_dir = from_dir_check("spatial", art_dir, Xq, mean, kmvm_sparse,
+                              "kmvm_blocksparse")
     # after the count: one Morton-sorted 1024-row chunk of queries, the
     # engine's cross-covariance launch (64-row query tiles against 256-row
     # plan tiles, the query rows repeated per column segment) for the mean
@@ -1682,7 +1740,7 @@ def phase_spatial(X, y, Xte, lte) -> dict:
             "entries": plan.entries, "precompute_s": precompute_s,
             "fit_b4": fit_b4, "rel_residual": rel_res, "verify": verify,
             "test_rmse": test_rmse, "peak_bytes": peak, "path_s": total_s,
-            "launches": launches, "cross_ms": cross_ms,
+            "launches": launches, "from_dir": from_dir, "cross_ms": cross_ms,
             "cross_err": cross_err, "cross_plain_ms": cross_plain_ms,
             "cross_bound": cross_bound, **traffic}
 
@@ -3128,7 +3186,7 @@ def main() -> None:
     del X_train
     Xf, yf, lf = make_spatial_field(SPATIAL_N + SPATIAL_TEST, seed=DATA_SEED)
     b4 = phase_blocksparse(Xf[:SPATIAL_N])
-    serve = phase_serve()
+    serve = phase_serve(s.X_test)
     from repro_torch.serve import load_artifact
 
     art = load_artifact(serve["artifact"], device=DEV)
@@ -3172,6 +3230,7 @@ def main() -> None:
             "replaces": sources[kname][1], "matched": True,
             "launches": serve["launches_total"][kname],
             "fit_launches": serve["fit_launches"][kname],
+            "from_dir_launches": serve["from_dir"]["launches"][kname],
             "fleet_launches": serve["fleet"]["launches_total"][kname],
             "observe_launches":
                 serve["fleet"]["observe"]["observe_launches"][kname],
@@ -3203,6 +3262,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/kmvm_sparse.cu",
         "replaces": "src/repro/sparse/kmvm_sparse.py:97", "matched": True,
         "launches": spatial["launches"]["kmvm_blocksparse"],
+        "from_dir_launches":
+            spatial["from_dir"]["launches"]["kmvm_blocksparse"],
         "train_launches": spatial["train_b4"],
         "fit_launches": spatial["fit_b4"],
         "observe_launches": spatial["observe"]["b4_launches"],

@@ -110,6 +110,12 @@ class DistGeometry(NamedTuple):
     def all_axes(self) -> tuple:
         return (*self.row_axes, *self.col_axes)
 
+    def vector_pspec(self) -> tuple:
+        """The spec of a CG vector (n_padded, ...) in `models.sharding`'s
+        form: dim 0 sharded over every mesh axis, row axes major. The
+        engine cuts its vector chunks by it (`_chunk_index`)."""
+        return (self.all_axes,)
+
     @property
     def n_padded(self) -> int:
         return self.n if self.n_pad is None else self.n_pad
@@ -253,7 +259,9 @@ def _x_cols(geom: DistGeometry, X: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_index(geom: DistGeometry) -> int:
-    return _linear_index(_mesh(geom), geom.all_axes)
+    """This rank's CG-vector chunk: its linear index over the axes that
+    shard a vector's dim 0 (`vector_pspec`)."""
+    return _linear_index(_mesh(geom), geom.vector_pspec()[0])
 
 
 def _x_chunk(geom: DistGeometry, X: torch.Tensor) -> torch.Tensor:
@@ -960,7 +968,7 @@ def make_mean_cache_solve(mesh, geom: DistGeometry, cfg: DistMLLConfig, *,
         precond = op.preconditioner(cfg.precond_rank)
         res = pcg(op, yc[:, None], precond.solve, max_iters=max_iters,
                   min_iters=min_iters, tol=tol)
-        a_full = _all_gather(mesh, geom.all_axes, res.solution[:, 0])
+        a_full = _all_gather(mesh, geom.vector_pspec()[0], res.solution[:, 0])
         return a_full[:geom.n], res.rel_residual
 
     return fn

@@ -158,16 +158,16 @@ def make_operator(config: OperatorConfig, X, params, *,
     return cls(config, X, params)
 
 
-def slab_block_fn_for(name: str, config: OperatorConfig, operand_dtype):
-    """The per-slab MVM override of backend `name` (registry-resolved, so a
-    new slab backend composes with the sharded operator at once)."""
-    return _resolve_backend(name).slab_block_fn(config, operand_dtype)
+def slab_block_fn_for(backend: str, config: OperatorConfig, operand_dtype):
+    """The per-slab MVM override of `backend` (registry-resolved, so a new
+    slab backend composes with the sharded operator at once)."""
+    return _resolve_backend(backend).slab_block_fn(config, operand_dtype)
 
 
-def slab_acc_fn_for(name: str, config: OperatorConfig, operand_dtype):
-    """The chunk-accumulate step of backend `name`, or None where it has
-    none (see `KernelOperator.slab_acc_fn`)."""
-    return _resolve_backend(name).slab_acc_fn(config, operand_dtype)
+def slab_acc_fn_for(backend: str, config: OperatorConfig, operand_dtype):
+    """The chunk-accumulate step of `backend`, or None where it has none
+    (see `KernelOperator.slab_acc_fn`)."""
+    return _resolve_backend(backend).slab_acc_fn(config, operand_dtype)
 
 
 def _compute_dtype_of(config: OperatorConfig, operand_dtype) -> torch.dtype | None:
@@ -249,6 +249,11 @@ class KernelOperator:
     @property
     def device(self) -> torch.device:
         return self.X.device
+
+    @property
+    def kernel(self):
+        """The kernel spec the operator was configured with."""
+        return self.config.kernel
 
     def matvec(self, V: torch.Tensor) -> torch.Tensor:
         """K_hat @ V (or K @ V when config.add_noise is False)."""
@@ -449,7 +454,7 @@ class PallasFusedOperator(PartitionedOperator):
         from repro_torch.kernels.autotune import tiles_for_spec
 
         n, d = self.X.shape
-        return tiles_for_spec(self.config.kernel, self.params, n, d, t,
+        return tiles_for_spec(self.config.kernel, self.params, n, n, d, t,
                               device=self.X.device,
                               compute_dtype=self.config.compute_dtype)
 

@@ -17,11 +17,13 @@ Cache design, as the reference's:
 
 * The key is a plain dict of everything the measurement depends on: the
   CUDA device name, the compute dtype, the STATIC component structure of
-  the fused pass, and n, d and t bucketed to the next power of two. It
-  never holds the launch's row count: the operator asks only for its
-  (n, n) launches, and a row's result must not depend on how many rows a
-  launch has (`kmvm._column_split`), so a split keyed on rows would break
-  that pin.
+  the fused pass, and n, d and t bucketed to the next power of two. The
+  entry points take the launch's row count `m` where the reference's do
+  (`cache_key(components, m, n, d, t)`, `tiles_for_spec(kernel, params,
+  m, n, d, t)`), but `m` never enters the key: a row's result must not
+  depend on how many rows a launch has (`kmvm._column_split`), so the
+  split depends on n only, and a split keyed on rows would break that
+  pin. The sweep times (n, n) launches whatever `m` is.
 * The on-disk filename is the sha1 of the canonical-JSON key; writes go
   through an atomic rename, so concurrent processes race benignly. The
   default directory is the port's own (`~/.cache/repro-gp/autotune-torch`,
@@ -56,6 +58,7 @@ from typing import Callable
 import torch
 
 from repro_torch import obs
+from repro_torch.device import resolve_device
 
 from . import kmvm
 
@@ -84,10 +87,10 @@ def shape_bucket(x: int) -> int:
     return b
 
 
-def cache_key(components, n: int, d: int, t: int, *, compute_dtype: str,
-              device_name: str | None = None) -> dict:
-    """Everything the winning split depends on, as a canonical plain dict
-    (no row count; see the module docstring)."""
+def cache_key(components, m: int, n: int, d: int, t: int, *,
+              compute_dtype: str, device_name: str | None = None) -> dict:
+    """Everything the winning split depends on, as a canonical plain dict.
+    `m`, the launch's row count, is not in it (see the module docstring)."""
     return {
         "device": device_name if device_name is not None
         else torch.cuda.get_device_name(),
@@ -156,6 +159,7 @@ def _default_measure(key: dict) -> Callable[[int], float]:
 
 def autotune_tiles(
     components,
+    m: int,
     n: int,
     d: int,
     t: int,
@@ -167,13 +171,14 @@ def autotune_tiles(
     cache_dir: str | None = None,
 ) -> int:
     """The cached `tiles_per_split` for this (card, dtype, structure, shape
-    bucket) of an (n, n) x (n, t) launch, swept and persisted on first sight.
+    bucket) of an (m, n) x (n, t) launch, swept and persisted on first
+    sight. The split depends on n only, so every m shares one entry.
 
     measure: split -> seconds; injectable for tests. The default times real
     B1 and B2 launches at the bucketed shapes. device_name: the key's card
     (None = `torch.cuda.get_device_name()`).
     """
-    key = cache_key(components, n, d, t, compute_dtype=compute_dtype,
+    key = cache_key(components, m, n, d, t, compute_dtype=compute_dtype,
                     device_name=device_name)
     h = key_hash(key)
     with _LOCK:
@@ -236,16 +241,18 @@ def clear_memo() -> None:
         _MEMO.clear()
 
 
-def tiles_for_spec(kernel, params, n: int, d: int, t: int, *, device,
-                   compute_dtype=None, device_name: str | None = None,
+def tiles_for_spec(kernel, params, m: int, n: int, d: int, t: int, *,
+                   device=None, compute_dtype=None,
+                   device_name: str | None = None,
                    cache_dir: str | None = None) -> int:
     """Operator-facing entry: the autotuned split of the spec's fused pass
-    for an (n, n) x (n, t) launch on `device`; the static default on a CPU
-    device (the plain versions have no split) or when the spec has no
-    fused pass to tune."""
+    for an (m, n) x (n, t) launch on `device` (None = the card; raises when
+    there is none); the static default on a CPU device (the plain versions
+    have no split) or when the spec has no fused pass to tune."""
     from .ops import _compute_dtype, mvm_plan
 
-    if torch.device(device).type != "cuda":
+    device = resolve_device(device)
+    if device.type != "cuda":
         return DEFAULT_TILES
     plan = mvm_plan(kernel, params)
     if not plan.passes:
@@ -253,17 +260,18 @@ def tiles_for_spec(kernel, params, n: int, d: int, t: int, *, device,
     if device_name is None:
         device_name = torch.cuda.get_device_name(device)
     cdt = str(_compute_dtype(compute_dtype)).removeprefix("torch.")
-    return autotune_tiles(plan.passes[0].components, n, d, t,
+    return autotune_tiles(plan.passes[0].components, m, n, d, t,
                           compute_dtype=cdt, device_name=device_name,
                           cache_dir=cache_dir)
 
 
-def prewarm(kernel, params, n: int, d: int, *, device, num_probes: int = 8,
-            compute_dtype=None, device_name: str | None = None,
+def prewarm(kernel, params, n: int, d: int, *, device=None,
+            num_probes: int = 8, compute_dtype=None,
+            device_name: str | None = None,
             cache_dir: str | None = None) -> int:
     """Resolve (and persist) the training shape's split before the first
     training step, so that a sweep's time lands in set-up
     (`repro_torch.train.gp_trainer`). t is the mBCG RHS count: y + probes."""
-    return tiles_for_spec(kernel, params, n, d, num_probes + 1, device=device,
-                          compute_dtype=compute_dtype, device_name=device_name,
-                          cache_dir=cache_dir)
+    return tiles_for_spec(kernel, params, n, n, d, num_probes + 1,
+                          device=device, compute_dtype=compute_dtype,
+                          device_name=device_name, cache_dir=cache_dir)

@@ -55,6 +55,10 @@ class MVMPlan(NamedTuple):
     fallback_terms: tuple    # kernels_math.Term dense-slab terms
 
     @property
+    def num_fused_passes(self) -> int:
+        return len(self.passes)
+
+    @property
     def num_fallback_terms(self) -> int:
         return len(self.fallback_terms)
 

@@ -61,10 +61,12 @@ def init_train_state(cfg, generator: torch.Generator | None = None,
     return TrainState(params=params, mu=mu, nu=nu, step=step)
 
 
-def train_state_shardings(mesh, state: TrainState) -> TrainState:
+def train_state_shardings(mesh, state_or_specs: TrainState) -> TrainState:
     """Specs of a TrainState: parameters and moments by `param_pspec`, the
-    step replicated."""
-    ps = {k: param_pspec(mesh, k, tuple(p.shape)) for k, p in state.params.items()}
+    step replicated. Only the leaves' shapes are read, so a state of
+    `meta` tensors serves as the reference's `eval_shape` specs do."""
+    ps = {k: param_pspec(mesh, k, tuple(p.shape))
+          for k, p in state_or_specs.params.items()}
     return TrainState(params=ps, mu=dict(ps), nu=dict(ps), step=())
 
 

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 from .layers import normal_init
 from .shardctx import checkpoint
 
@@ -105,7 +107,8 @@ def decode_attention(q, k_cache, v_cache, t: int, *, window: int = 0):
 
 
 def attn_params(generator, d: int, hq: int, hkv: int, hd: int, dtype,
-                device) -> nn.ParameterDict:
+                device=None) -> nn.ParameterDict:
+    device = resolve_device(device)
     s = (2.0 / d) ** 0.5
     so = (2.0 / (hq * hd)) ** 0.5
     return nn.ParameterDict({

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 from .shardctx import shard
 
 
@@ -50,7 +52,8 @@ def apply_norm(kind: str, x, scale):
     raise ValueError(kind)
 
 
-def norm_param(kind: str, d: int, dtype, device) -> nn.Parameter:
+def norm_param(kind: str, d: int, dtype, device=None) -> nn.Parameter:
+    device = resolve_device(device)
     # np_layernorm keeps a dummy (1,) parameter so the layout (and the
     # parameter count) stays the reference's
     if kind == "np_layernorm":
@@ -72,7 +75,8 @@ def mlp_apply(kind: str, p, x):
 
 
 def mlp_params(kind: str, generator, d: int, f: int, dtype,
-               device) -> nn.ParameterDict:
+               device=None) -> nn.ParameterDict:
+    device = resolve_device(device)
     s_in = (2.0 / d) ** 0.5
     s_out = (2.0 / f) ** 0.5
     p = nn.ParameterDict({

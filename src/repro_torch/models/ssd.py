@@ -24,11 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 from .layers import normal_init, rmsnorm
 from .shardctx import current_mesh, local
 
 
-def ssd_params(generator, cfg, dtype, device) -> nn.ParameterDict:
+def ssd_params(generator, cfg, dtype, device=None) -> nn.ParameterDict:
+    device = resolve_device(device)
     d, dinner, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = dinner + 2 * n
     f32 = torch.float32

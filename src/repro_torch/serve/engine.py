@@ -25,7 +25,7 @@ from repro_torch.core.partitioned import map_row_chunks
 from repro_torch.core.predcache import predict_mean, predict_var_cached
 from repro_torch.sparse.plan import morton_order
 
-from .artifact import PosteriorArtifact
+from .artifact import PosteriorArtifact, load_artifact
 
 _KEEP = "__keep__"  # sentinel: inherit the artifact's compute_dtype
 
@@ -74,6 +74,16 @@ class PredictionEngine:
         self.rows_served = 0
         self._counter_lock = threading.Lock()
 
+    @classmethod
+    def from_dir(cls, directory: str, **kwargs) -> "PredictionEngine":
+        """An engine on the artifact saved under `directory`, restored onto
+        the engine's own device (`device=` in kwargs; None = the card)."""
+        return cls(load_artifact(directory, device=kwargs.get("device")), **kwargs)
+
+    @property
+    def backend(self) -> str:
+        return self.config.backend
+
     def _predict_chunk(self, Xc: torch.Tensor):
         mean = predict_mean(self.op, Xc, self._cache)
         var = predict_var_cached(self.op, Xc, self._cache,
@@ -120,3 +130,7 @@ class PredictionEngine:
             (time.perf_counter() - t0) * 1e3)
         obs.histogram("serve.predict_rows").observe(m)
         return out
+
+    def predict_mean(self, Xstar) -> torch.Tensor:
+        """The posterior mean alone: `predict(Xstar)[0]`."""
+        return self.predict(Xstar)[0]

@@ -18,11 +18,13 @@ numpy and holds the same arrays as the reference's:
 `SparsePlan.digest` hashes exactly what the reference hashes, so a plan
 built here and one built by the reference from the same (kernel, X,
 params) have the same digest, and posterior artifacts that record it load
-in either package. The support radius enters the digest as the float32
-value of softplus(raw radius) that the reference computes with XLA on an
-x86-64 CPU; `_softplus_f32` repeats that arithmetic bit for bit (float64
-hyperparameters use numpy's float64 softplus, which the reference's XLA
-float64 path may differ from in the last bit).
+in either package. The support radius enters the digest as the value of
+softplus(raw radius) that the reference computes with XLA on an x86-64
+CPU, in float32 or float64 as the hyperparameters are; `_softplus_f32` and
+`_softplus_f64` repeat that arithmetic bit for bit (numpy's own float64
+softplus misses XLA's last bit on two of the five seeded radii of
+tests/test_torch_api_surface.py, and then so does the digest; that file
+holds seeded float32 and float64 plans' digests against the reference's).
 
 A margin guards the mask against the support radius moving in training:
 the plan is built at support * (1 + margin), and `needs_replan` fires
@@ -37,6 +39,7 @@ import functools
 import hashlib
 import math
 import struct
+from fractions import Fraction
 from typing import NamedTuple
 
 import numpy as np
@@ -156,11 +159,68 @@ def _softplus_f32(x) -> np.ndarray:
     return _ftz(out.astype(_F))
 
 
+# -- the reference's float64 softplus, bit for bit ---------------------------
+#
+# In float64 XLA's CPU backend computes exp as Eigen's Cephes rational
+# approximation (`pexp_double`) and log1p as Cephes' rational approximation
+# below sqrt(2) - 1 and as log(1 + x) above it, where its log is the C
+# library's; multiplies that feed an add are contracted into FMAs as in
+# float32. `_fma64` is exact: the sum of rationals is rounded once.
+
+_EXP_P = (1.26177193074810590878e-4, 3.02994407707441961300e-2,
+          9.99999999999999999910e-1)
+_EXP_Q = (3.00198505138664455042e-6, 2.52448340349684104192e-3,
+          2.27265548208155028766e-1, 2.00000000000000000009e0)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _fma64(a: float, b: float, c: float) -> float:
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _poly64(x: float, coeffs) -> float:
+    """Horner's rule, highest coefficient first, one FMA a step."""
+    p = 0.0
+    for c in coeffs:
+        p = _fma64(p, x, c)
+    return p
+
+
+def _exp_f64(x: float) -> float:
+    if x < -745.519:
+        return 0.0
+    x = min(x, 709.784)
+    fx = math.floor(_fma64(1.4426950408889634073599, x, 0.5))
+    r = _fma64(-fx, 0.693145751953125, x)
+    r = _fma64(-fx, 1.42860682030941723212e-6, r)
+    px = _poly64(r * r, _EXP_P) * r
+    qx = _poly64(r * r, _EXP_Q)
+    return math.ldexp(_fma64(2.0, px / (qx - px), 1.0), fx)
+
+
+def _log1p_f64(x: float) -> float:
+    if abs(x) < 0.41421356237309504880:
+        x2 = x * x
+        r = (x * x2) * (_poly64(x, _LOG1P_NUM) / _poly64(x, _LOG1P_DEN))
+        return x + _fma64(x2, -0.5, r)
+    return math.log(x + 1.0)
+
+
+def _softplus_f64(x: float) -> float:
+    return max(x, 0.0) + _log1p_f64(_exp_f64(-abs(x)))
+
+
 def _softplus_host(raw: np.ndarray) -> np.ndarray:
     if raw.dtype == np.float32:
         return _softplus_f32(raw)
-    raw = raw.astype(np.float64)
-    return np.maximum(raw, 0.0) + np.log1p(np.exp(-np.abs(raw)))
+    return np.vectorize(_softplus_f64, otypes=[np.float64])(
+        raw.astype(np.float64))
 
 
 def _taper_terms(kernel, params):

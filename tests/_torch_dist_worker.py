@@ -259,3 +259,33 @@ def elastic_reshard(rank, p):
             "placements": [str(pl) for pl in placed["w"].placements],
             "mesh_shape": tuple(placed["w"].device_mesh.shape),
             "bad": validate_divisibility({"v": np.zeros((3, 8))}, mesh2, pspec)}
+
+
+def vector_layout(rank, p):
+    """The engine's CG-vector layout on each mesh shape of the payload: the
+    rank's `shard_vector` chunk, the same vector placed as a DTensor by
+    `DistGeometry.vector_pspec()`, and the chunks gathered back over the
+    spec's axes (see tests/test_torch_api_surface.py)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import placements
+
+    out = {}
+    for shape in p["shapes"]:
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        for mode in ("1d", "2d"):
+            for n in p["ns"]:
+                geom = D.make_geometry(mesh, n, 2, mode=mode)
+                spec = geom.vector_pspec()
+                y = torch.arange(geom.n_padded, dtype=torch.float64)
+                chunk = D.shard_vector(mesh, geom, y)
+                placed = distribute_tensor(y, mesh.device_mesh,
+                                           placements(mesh, spec, 1))
+                gathered = D._all_gather(mesh, spec[0], chunk)
+                out[(tuple(shape), mode, n)] = {
+                    "spec": spec, "all_axes": geom.all_axes,
+                    "chunk": _np(chunk), "placed": _np(placed.to_local()),
+                    "gathered": _np(gathered)}
+    return out

@@ -75,7 +75,7 @@ def _fixed_measure(table):
 def test_sweep_picks_minimum_and_persists(tmp_path):
     cdir = str(tmp_path)
     measure = _fixed_measure({128: 0.1, 16: 0.5})
-    choice = autotune_tiles(COMPONENTS, 1000, 8, 9, **ARGS,
+    choice = autotune_tiles(COMPONENTS, 1000, 1000, 8, 9, **ARGS,
                             candidates=DEFAULT_CANDIDATES, measure=measure,
                             cache_dir=cdir)
     assert choice == 128
@@ -83,7 +83,7 @@ def test_sweep_picks_minimum_and_persists(tmp_path):
     # one entry on disk, named by the content hash, carrying the timings
     files = os.listdir(cdir)
     assert len(files) == 1
-    key = cache_key(COMPONENTS, 1000, 8, 9, **ARGS)
+    key = cache_key(COMPONENTS, 1000, 1000, 8, 9, **ARGS)
     assert files[0] == key_hash(key) + ".json"
     with open(os.path.join(cdir, files[0])) as f:
         entry = json.load(f)
@@ -96,13 +96,13 @@ def test_sweep_picks_minimum_and_persists(tmp_path):
 def test_disk_roundtrip_skips_measurement(tmp_path):
     cdir = str(tmp_path)
     m1 = _fixed_measure({0: 0.01})
-    first = autotune_tiles(COMPONENTS, 500, 4, 3, **ARGS, measure=m1,
+    first = autotune_tiles(COMPONENTS, 500, 500, 4, 3, **ARGS, measure=m1,
                            cache_dir=cdir)
     assert first == 0
     # a fresh process (memo cleared) must hit the disk entry, not re-sweep
     clear_memo()
     m2 = _fixed_measure({16: 0.0})  # would pick differently
-    second = autotune_tiles(COMPONENTS, 500, 4, 3, **ARGS, measure=m2,
+    second = autotune_tiles(COMPONENTS, 500, 500, 4, 3, **ARGS, measure=m2,
                             cache_dir=cdir)
     assert second == first
     assert m2.calls == []
@@ -111,10 +111,10 @@ def test_disk_roundtrip_skips_measurement(tmp_path):
 def test_memo_skips_disk(tmp_path):
     cdir = str(tmp_path)
     measure = _fixed_measure({})
-    first = autotune_tiles(COMPONENTS, 64, 2, 1, **ARGS, measure=measure,
+    first = autotune_tiles(COMPONENTS, 64, 64, 2, 1, **ARGS, measure=measure,
                            cache_dir=cdir)
     os.unlink(os.path.join(cdir, os.listdir(cdir)[0]))
-    second = autotune_tiles(COMPONENTS, 64, 2, 1, **ARGS, measure=measure,
+    second = autotune_tiles(COMPONENTS, 64, 64, 2, 1, **ARGS, measure=measure,
                             cache_dir=cdir)
     assert second == first
     assert len(measure.calls) == len(DEFAULT_CANDIDATES)  # swept only once
@@ -123,7 +123,7 @@ def test_memo_skips_disk(tmp_path):
 def test_tie_breaks_toward_earliest_candidate(tmp_path):
     # every candidate times identically -> the FIRST in the sweep wins
     measure = _fixed_measure({c: 0.25 for c in DEFAULT_CANDIDATES})
-    choice = autotune_tiles(COMPONENTS, 256, 4, 2, **ARGS, measure=measure,
+    choice = autotune_tiles(COMPONENTS, 256, 256, 4, 2, **ARGS, measure=measure,
                             cache_dir=str(tmp_path))
     assert choice == DEFAULT_CANDIDATES[0]
 
@@ -134,7 +134,7 @@ def test_deterministic_under_fixed_measure(tmp_path):
     for i in range(3):
         clear_memo()
         picks.append(autotune_tiles(
-            COMPONENTS, 2048, 16, 9, **ARGS, measure=_fixed_measure(table),
+            COMPONENTS, 2048, 2048, 16, 9, **ARGS, measure=_fixed_measure(table),
             cache_dir=str(tmp_path / f"run{i}")))
     assert picks == [128] * 3
 
@@ -145,29 +145,29 @@ def test_shape_bucket_is_next_pow2():
 
 
 def test_key_invalidates_on_dtype_device_and_shape_bucket():
-    k0 = cache_key(COMPONENTS, 1000, 8, 9, **ARGS)
+    k0 = cache_key(COMPONENTS, 1000, 1000, 8, 9, **ARGS)
     # same bucket (513..1024 -> 1024): same key, cache hit
-    assert key_hash(cache_key(COMPONENTS, 513, 8, 9, **ARGS)) == key_hash(k0)
-    kd = cache_key(COMPONENTS, 1000, 8, 9, compute_dtype="bfloat16",
+    assert key_hash(cache_key(COMPONENTS, 700, 513, 8, 9, **ARGS)) == key_hash(k0)
+    kd = cache_key(COMPONENTS, 1000, 1000, 8, 9, compute_dtype="bfloat16",
                    device_name=CARD)
-    kc = cache_key(COMPONENTS, 1000, 8, 9, compute_dtype="float32",
+    kc = cache_key(COMPONENTS, 1000, 1000, 8, 9, compute_dtype="float32",
                    device_name="NVIDIA H200")
-    kn = cache_key(COMPONENTS, 1025, 8, 9, **ARGS)
-    kdd = cache_key(COMPONENTS, 1000, 9, 9, **ARGS)
-    kt = cache_key(COMPONENTS, 1000, 8, 17, **ARGS)
-    ks = cache_key((("rbf",),), 1000, 8, 9, **ARGS)
+    kn = cache_key(COMPONENTS, 1025, 1025, 8, 9, **ARGS)
+    kdd = cache_key(COMPONENTS, 1000, 1000, 9, 9, **ARGS)
+    kt = cache_key(COMPONENTS, 1000, 1000, 8, 17, **ARGS)
+    ks = cache_key((("rbf",),), 1000, 1000, 8, 9, **ARGS)
     hashes = {key_hash(k) for k in (k0, kd, kc, kn, kdd, kt, ks)}
     assert len(hashes) == 7
 
 
 def test_cache_hit_across_shapes_in_same_bucket(tmp_path):
     cdir = str(tmp_path)
-    a = autotune_tiles(COMPONENTS, 900, 5, 3, **ARGS,
+    a = autotune_tiles(COMPONENTS, 900, 900, 5, 3, **ARGS,
                        measure=_fixed_measure({32: 0.0}), cache_dir=cdir)
     clear_memo()
     m2 = _fixed_measure({256: 0.0})
     # n 900 -> 1024 and 600 -> 1024, d 5 -> 8 and 7 -> 8, t 3 -> 4, 4 -> 4
-    b = autotune_tiles(COMPONENTS, 600, 7, 4, **ARGS, measure=m2,
+    b = autotune_tiles(COMPONENTS, 600, 600, 7, 4, **ARGS, measure=m2,
                        cache_dir=cdir)
     assert b == a == 32
     assert m2.calls == []
@@ -182,13 +182,13 @@ def test_cache_miss_under_capture_falls_back_without_memoizing(tmp_path,
     cdir = str(tmp_path)
     monkeypatch.setattr(autotune, "_capturing", lambda: True)
     measure = _fixed_measure({})
-    got = autotune_tiles(COMPONENTS, 64, 2, 1, **ARGS, measure=measure,
+    got = autotune_tiles(COMPONENTS, 64, 64, 2, 1, **ARGS, measure=measure,
                          cache_dir=cdir)
     assert got == DEFAULT_TILES == kmvm._SPLIT_TILES
     assert measure.calls == [] and os.listdir(cdir) == []
     assert obs.registry().snapshot()["autotune.trace_fallbacks"] == 1
     monkeypatch.setattr(autotune, "_capturing", lambda: False)
-    eager = autotune_tiles(COMPONENTS, 64, 2, 1, **ARGS,
+    eager = autotune_tiles(COMPONENTS, 64, 64, 2, 1, **ARGS,
                            measure=_fixed_measure({256: 0.0}), cache_dir=cdir)
     assert eager == 256
     assert len(os.listdir(cdir)) == 1
@@ -199,13 +199,13 @@ def test_tiles_for_spec_and_prewarm_route_through_cache(tmp_path):
     params = init_params(dtype=torch.float32)
     plan = ops.mvm_plan("matern32", params)
     # seed the cache entry via the low-level API at prewarm's key
-    autotune_tiles(plan.passes[0].components, 64, 3, 9, **ARGS,
+    autotune_tiles(plan.passes[0].components, 64, 64, 3, 9, **ARGS,
                    measure=_fixed_measure({16: 0.9, 256: 0.1}), cache_dir=cdir)
     card = torch.device("cuda")  # only its type is read here; no launch
     got = prewarm("matern32", params, 64, 3, num_probes=8, device=card,
                   device_name=CARD, cache_dir=cdir)
     assert got == 256
-    assert tiles_for_spec("matern32", params, 64, 3, 9, device=card,
+    assert tiles_for_spec("matern32", params, 64, 64, 3, 9, device=card,
                           device_name=CARD, compute_dtype="float32",
                           cache_dir=cdir) == 256
     assert obs.registry().snapshot()["autotune.hits"] == 2
@@ -226,18 +226,18 @@ def test_autotune_counters(tmp_path):
 
     args = dict(**ARGS, candidates=(128, 256), measure=measure,
                 cache_dir=str(tmp_path))
-    choice = autotune_tiles(components, 512, 4, 9, **args)
+    choice = autotune_tiles(components, 512, 512, 4, 9, **args)
     assert choice == 256 and len(calls) == 2
     snap = obs.registry().snapshot()
     assert snap["autotune.misses"] == 1 and snap["autotune.sweeps"] == 1
     assert snap["autotune.sweep_ms"]["count"] == 1
     # memo hit: no new sweep
-    assert autotune_tiles(components, 512, 4, 9, **args) == choice
+    assert autotune_tiles(components, 512, 512, 4, 9, **args) == choice
     snap = obs.registry().snapshot()
     assert snap["autotune.hits"] == 1 and snap["autotune.sweeps"] == 1
     # disk hit after memo clear
     clear_memo()
-    assert autotune_tiles(components, 512, 4, 9, **args) == choice
+    assert autotune_tiles(components, 512, 512, 4, 9, **args) == choice
     assert obs.registry().snapshot()["autotune.hits"] == 2
     assert len(calls) == 2  # measure never re-ran
 
@@ -248,13 +248,19 @@ def test_autotune_counters(tmp_path):
 
 
 def test_key_has_no_row_count():
-    """Neither the key nor any entry point takes the launch's rows: the
-    operator asks for its (n, n) launches, and a row's result must not
-    depend on how many rows a launch holds."""
-    key = cache_key(COMPONENTS, 1000, 8, 9, **ARGS)
+    """The entry points take the launch's rows `m` where the reference's
+    do, but the key never holds it: a row's result must not depend on how
+    many rows a launch holds, so every m shares the (n, n) launch's split
+    (one sweep for two m: tests/test_torch_api_surface.py)."""
+    key = cache_key(COMPONENTS, 1000, 1000, 8, 9, **ARGS)
     assert set(key) == {"device", "compute_dtype", "components", "n", "d", "t"}
-    for fn in (cache_key, autotune_tiles, tiles_for_spec):
-        assert "m" not in inspect.signature(fn).parameters, fn.__name__
+    for m in (1, 64, 4096):
+        assert cache_key(COMPONENTS, m, 1000, 8, 9, **ARGS) == key
+    for fn, first in ((cache_key, "components"), (autotune_tiles, "components"),
+                      (tiles_for_spec, "params")):
+        names = list(inspect.signature(fn).parameters)
+        i = names.index(first)
+        assert names[i + 1:i + 5] == ["m", "n", "d", "t"], fn.__name__
 
 
 def test_default_directory_is_the_ports_own(monkeypatch, tmp_path):
@@ -266,11 +272,11 @@ def test_default_directory_is_the_ports_own(monkeypatch, tmp_path):
     assert parts[-2:] == ["repro-gp", "autotune-torch"]
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path))
     assert autotune.default_cache_dir() == str(tmp_path)
-    key = cache_key(COMPONENTS, 64, 2, 1, **ARGS)
+    key = cache_key(COMPONENTS, 64, 64, 2, 1, **ARGS)
     with open(tmp_path / (key_hash(key) + ".json"), "w") as f:
         json.dump({"key": key, "bm": 256, "bn": 256}, f)
     measure = _fixed_measure({32: 0.0})
-    assert autotune_tiles(COMPONENTS, 64, 2, 1, **ARGS, measure=measure) == 32
+    assert autotune_tiles(COMPONENTS, 64, 64, 2, 1, **ARGS, measure=measure) == 32
     assert measure.calls == list(DEFAULT_CANDIDATES)
 
 
@@ -286,8 +292,8 @@ def test_capture_guard_reads_graph_capture_and_compile(monkeypatch):
 
 def test_cpu_device_returns_the_static_split_without_sweeping(tmp_path):
     params = init_params(dtype=torch.float32)
-    got = tiles_for_spec("matern32", params, 1 << 16, 9, 9, device="cpu",
-                         cache_dir=str(tmp_path))
+    got = tiles_for_spec("matern32", params, 1 << 16, 1 << 16, 9, 9,
+                         device="cpu", cache_dir=str(tmp_path))
     assert got == DEFAULT_TILES
     assert os.listdir(tmp_path) == []
     assert obs.registry().snapshot().get("autotune.misses", 0) == 0
@@ -325,7 +331,8 @@ def test_operator_hands_the_tuned_split_to_b1_and_b2(monkeypatch):
                         dtype=torch.float32)
     asked, seen = [], []
 
-    def fake_tiles(kernel, params, n, d, t, *, device, compute_dtype=None):
+    def fake_tiles(kernel, params, m, n, d, t, *, device, compute_dtype=None):
+        assert m == n
         asked.append((n, d, t, torch.device(device).type))
         return 16 * t
 

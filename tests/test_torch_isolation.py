@@ -7,11 +7,13 @@
 * With JAX made unimportable, `repro_torch` imports and predicts on the CPU.
 * Entry points with no `device` raise when there is no card, rather than
   running on the CPU (the operators, the posterior fit and engine, the
-  launchers, the serving fleet, training: `fit_exact_gp`, `exact_mll`, the
+  engine on a saved artifact (`PredictionEngine.from_dir`), the launchers, the serving fleet, training: `fit_exact_gp`, `exact_mll`, the
   blocksparse backend, the distributed engine: `init_distributed`,
   `make_mesh`, `make_host_mesh`, the sharded operator, and the baselines:
-  `fit_sgpr`, `fit_svgp`, `init_sgpr_params`, `init_svgp_params`, and deep
-  kernel learning: the LM's `init_params` / `LM`, `pooled_features`,
+  `fit_sgpr`, `fit_svgp`, `init_sgpr_params`, `init_svgp_params`, the
+  autotuner's `tiles_for_spec` / `prewarm`, and deep kernel learning: the
+  LM's `init_params` / `LM` and its layers' `attn_params`, `mlp_params`,
+  `norm_param`, `ssd_params`, `pooled_features`,
   `init_mlp`, `make_mlp_dkl`, `DKLModel.loss`).
 * A non-CPU tensor handed to a kernel wrapper never reaches the plain
   version (with a real CUDA tensor: tests/test_torch_gpu.py).
@@ -120,7 +122,7 @@ def test_tf32_is_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X = np.zeros((8, 2), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -131,6 +133,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     art = fit_posterior(op, np.ones(8, np.float32), precond_rank=2, lanczos_rank=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PredictionEngine(art)
+    from repro_torch.serve import save_artifact
+
+    save_artifact(str(tmp_path), art)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PredictionEngine.from_dir(str(tmp_path))
+    assert PredictionEngine.from_dir(str(tmp_path), device="cpu").op.device.type == "cpu"
+    from repro_torch.kernels.autotune import prewarm, tiles_for_spec
+
+    for call in (lambda: tiles_for_spec("matern32", init_params(), 8, 8, 2, 1),
+                 lambda: prewarm("matern32", init_params(), 8, 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     from repro_torch.serve import ServeFleet
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -221,8 +235,17 @@ def test_dkl_entry_points_raise_without_a_card(monkeypatch):
     tokens = np.zeros((4, 8), np.int64)
     phi = init_mlp(None, (3, 4), device="cpu")
     X, y = np.zeros((8, 3), np.float32), np.zeros(8, np.float32)
+    from repro_torch.models.attention import attn_params
+    from repro_torch.models.layers import mlp_params, norm_param
+    from repro_torch.models.ssd import ssd_params
+
     for call in (lambda: lm_init_params(cfg),
                  lambda: LM(cfg),
+                 lambda: attn_params(None, 8, 2, 2, 4, torch.float32),
+                 lambda: mlp_params("swiglu", None, 8, 16, torch.float32),
+                 lambda: norm_param("rmsnorm", 8, torch.float32),
+                 lambda: ssd_params(None, get_arch("mamba2-130m").reduced(),
+                                    torch.float32),
                  lambda: pooled_features(cfg, lm, tokens),
                  lambda: init_mlp(None, (3, 4)),
                  lambda: make_mlp_dkl(None, 3),
