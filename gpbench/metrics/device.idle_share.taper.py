@@ -1,0 +1,8 @@
+"""`device.idle_share.serve` in the cells that report `fit_s` and no window metric end to
+end (taper-serve; PERF.md, section 2): the same reader."""
+import os
+
+from gpbench.harness import manifest
+
+read = manifest.load_part(
+    "metrics", "device.idle_share.serve", os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).read
