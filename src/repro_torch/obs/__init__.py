@@ -42,6 +42,7 @@ from .metrics import (
     Histogram,
     MetricsRegistry,
     SLOTracker,
+    SpanTotal,
     counter,
     gauge,
     histogram,
@@ -61,14 +62,17 @@ from .profiling import (
     step_annotation,
 )
 from .trace import (
+    clock_us,
     complete_event,
     counter_event,
     disable_tracing,
     drain_events,
     enable_tracing,
+    host_span,
     instant,
     maybe_wrap,
     next_request_id,
+    read_span,
     span,
     trace_session,
     tracing_enabled,
@@ -79,11 +83,13 @@ __all__ = [
     "CollectiveCost", "StepCost", "dist_collective_cost",
     "mll_phase_costs", "mll_step_cost",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "SLOTracker",
+    "SpanTotal",
     "counter", "gauge", "histogram", "latency_summary",
     "record_solver_step", "registry", "slo",
     "annotate", "disable_profiling", "enable_profiling", "memory_snapshot",
     "named_scope", "profile_session", "profiling_enabled", "step_annotation",
-    "complete_event", "counter_event", "disable_tracing", "drain_events",
-    "enable_tracing", "instant", "maybe_wrap", "next_request_id", "span",
-    "trace_session", "tracing_enabled",
+    "clock_us", "complete_event", "counter_event", "disable_tracing",
+    "drain_events", "enable_tracing", "host_span", "instant", "maybe_wrap",
+    "next_request_id", "read_span", "span", "trace_session",
+    "tracing_enabled",
 ]

@@ -9,7 +9,8 @@ has brought them to the host.
 
 Instrument names are dotted lowercase, subsystem first (`cg.iters`,
 `solver.steps.warm`, `sparse.fill`, `serve.batch_rows`,
-`serve.slo.<model>`). `snapshot()` returns a plain-JSON dict keyed by
+`serve.slo.<model>`; `span.<name>`, the window totals that `obs.trace`
+keeps of each traced span). `snapshot()` returns a plain-JSON dict keyed by
 those names (histograms summarize to count/mean/percentiles).
 """
 
@@ -148,6 +149,39 @@ class Histogram:
         return self.summary()
 
 
+class SpanTotal:
+    """Totals of one span name over a traced window: how many closed, their
+    summed duration and self time (the duration less what direct children
+    cover), in ms. `kind` is the span's declaration (`obs.trace`): "host"
+    (host-only work), "read" (a read from the card) or "plain"."""
+
+    __slots__ = ("name", "kind", "count", "total_ms", "self_ms", "_lock")
+
+    def __init__(self, name: str, kind: str = "plain"):
+        self.name = name
+        self.kind = kind
+        self.count = 0
+        self.total_ms = 0.0
+        self.self_ms = 0.0
+        self._lock = threading.Lock()
+
+    def record(self, dur_ms: float, self_ms: float) -> None:
+        with self._lock:
+            self.count += 1
+            self.total_ms += dur_ms
+            self.self_ms += self_ms
+
+    def reset(self):
+        with self._lock:
+            self.count = 0
+            self.total_ms = 0.0
+            self.self_ms = 0.0
+
+    def snapshot(self):
+        return {"kind": self.kind, "count": self.count,
+                "total_ms": self.total_ms, "self_ms": self.self_ms}
+
+
 class SLOTracker:
     """Per-model serving SLO instrument: latency percentiles and windowed QPS.
 
@@ -267,6 +301,12 @@ class MetricsRegistry:
 
     def slo(self, name: str) -> SLOTracker:
         return self._get(name, SLOTracker)
+
+    def span_total(self, name: str, kind: str = "plain") -> SpanTotal:
+        """The totals of span `name`, kept as `span.<name>`."""
+        inst = self._get(f"span.{name}", SpanTotal)
+        inst.kind = kind
+        return inst
 
     def snapshot(self) -> dict:
         """Plain-JSON view of every instrument (sorted by name)."""

@@ -3,16 +3,34 @@
 The counterpart of `repro.obs.trace`: host-side spans around the phases of
 the serve path, emitted as Chrome-trace-event-compatible JSONL (one JSON
 object per line; each span a complete "X" event with microsecond ts/dur,
-pid/tid and an `args` dict), the format the reference's `obs_report`
-reads.
+pid/tid, its `span_id` and `parent_id`, and an `args` dict), the format
+the reference's `obs_report` reads.
 
-* Disabled by default. `span()` with tracing off returns a shared no-op
+* Disabled by default. A span with tracing off is a shared no-op
   singleton: no allocation, no clock read, no lock.
-* Host-side only. Spans time host wall clock; a span around work on the
-  card measures the enqueue unless the caller synchronizes inside it.
-* Request flows that hop threads (caller -> assembler -> worker) are
-  emitted after the fact with `complete_event` on a synthetic per-request
-  tid, so ts/dur containment rebuilds each request's stack.
+* One clock with the profiler. Every event is stamped on the epoch clock
+  that `torch.profiler` stamps its own events with (`clock_us`:
+  perf_counter plus an offset read at each `enable_tracing`), so the spans
+  lie on a device trace of the same run.
+* Parent links. Each thread keeps a stack of its open spans; a span's
+  parent is the span open on its thread when it entered. Request flows
+  that hop threads (caller -> assembler -> worker) are emitted after the
+  fact with `complete_event` on a synthetic per-request tid and keep their
+  request ID.
+* Window totals. Each span that closes while tracing is on adds its
+  duration and self time (the duration less what its direct children
+  cover) to the registry's `span.<name>` totals (`metrics.SpanTotal`).
+  `enable_tracing` resets them and `disable_tracing` keeps them, so its
+  closing metrics snapshot carries them.
+* Three kinds of span. `span` times host wall clock and may enclose work
+  on the card: there it measures the enqueue unless the caller
+  synchronizes inside it. `host_span` declares a body that launches
+  nothing and copies nothing on the card; under tracing it also opens a
+  `torch.profiler` range of its name, so a profile of the run names that
+  host time. Only such spans enter the profiler: a range that encloses a
+  launch is mirrored onto the card's timeline, where it reads as device
+  work. `read_span` declares one read from the card (a copy to the host,
+  or an op whose result size the host reads); its totals count the reads.
 
 Enable with `enable_tracing(path)` / `trace_session(path)`, or for any
 entry point through the environment: `REPRO_TORCH_OBS_TRACE=<path.jsonl>`
@@ -32,9 +50,17 @@ import threading
 import time
 from typing import Any
 
+from torch.autograd.profiler import record_function
 
-def _now_us() -> float:
-    return time.perf_counter_ns() / 1e3
+from . import metrics as _metrics
+
+
+def _epoch_offset_ns() -> int:
+    """The epoch clock (the profiler's) less perf_counter, in ns."""
+    a = time.perf_counter_ns()
+    wall = time.time_ns()
+    b = time.perf_counter_ns()
+    return wall - (a + b) // 2
 
 
 class _TraceState:
@@ -45,6 +71,7 @@ class _TraceState:
         self.path: str | None = None
         self.events: list[dict] = []     # buffered events (in-memory mode)
         self.lock = threading.Lock()
+        self.offset_ns = _epoch_offset_ns()
         self._file = None
         self._atexit_registered = False
         self._signals_hooked = False
@@ -52,6 +79,29 @@ class _TraceState:
 
 
 _STATE = _TraceState()
+_LOCAL = threading.local()     # .stack: the calling thread's open spans
+_SPAN_IDS = itertools.count(1)
+
+
+def _epoch_us(t_ns: int) -> float:
+    """A perf_counter_ns reading on the trace's clock, in whole microseconds:
+    epoch-sized stamps keep a quarter microsecond as floats, so a fraction
+    could break the nesting of two spans (floor keeps it, exactly)."""
+    return float((t_ns + _STATE.offset_ns) // 1000)
+
+
+def clock_us() -> float:
+    """Now on the trace's clock: microseconds since the epoch, as
+    `torch.profiler` stamps its events (perf_counter plus the offset read at
+    the last `enable_tracing`; differences are perf_counter differences)."""
+    return _epoch_us(time.perf_counter_ns())
+
+
+def _open_spans() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
 
 
 class _NullSpan:
@@ -73,14 +123,17 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """An open span; emits one complete event on exit."""
+    """An open span; on exit it emits one complete event and adds to its
+    name's window totals, if tracing is still on."""
 
-    __slots__ = ("name", "args", "_t0")
+    __slots__ = ("name", "args", "kind", "span_id", "parent", "_t0",
+                 "_child_ns", "_range")
 
-    def __init__(self, name: str, args: dict):
+    def __init__(self, name: str, args: dict, kind: str = "plain"):
         self.name = name
         self.args = args
-        self._t0 = _now_us()
+        self.kind = kind
+        self._range = None
 
     def set(self, **attrs) -> "_Span":
         """Attach attributes known only mid-span."""
@@ -88,13 +141,37 @@ class _Span:
         return self
 
     def __enter__(self):
+        stack = _open_spans()
+        self.parent = stack[-1] if stack else None
+        self.span_id = next(_SPAN_IDS)
+        self._child_ns = 0
+        if self.kind == "host":
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        stack.append(self)
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        t1 = _now_us()
-        _emit({"name": self.name, "ph": "X", "ts": self._t0,
-               "dur": t1 - self._t0, "pid": os.getpid(),
-               "tid": threading.get_ident(), "args": self.args})
+        t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        _open_spans().pop()   # spans nest: the top is this one
+        dur = t1 - self._t0
+        parent = self.parent
+        if parent is not None:
+            parent._child_ns += dur
+        st = _STATE
+        if st.enabled:
+            _metrics.registry().span_total(self.name, self.kind).record(
+                dur / 1e6, (dur - self._child_ns) / 1e6)
+            ts = _epoch_us(self._t0)
+            _emit({"name": self.name, "ph": "X", "ts": ts,
+                   "dur": _epoch_us(t1) - ts,
+                   "pid": os.getpid(), "tid": threading.get_ident(),
+                   "span_id": self.span_id,
+                   "parent_id": None if parent is None else parent.span_id,
+                   "args": self.args})
         return False
 
 
@@ -121,11 +198,26 @@ def span(name: str, **attrs: Any):
     return _Span(name, attrs)
 
 
+def host_span(name: str, **attrs: Any):
+    """A span whose body launches nothing and copies nothing on the card;
+    under tracing it also opens a `torch.profiler` range of its name."""
+    if not _STATE.enabled:
+        return _NULL_SPAN
+    return _Span(name, attrs, "host")
+
+
+def read_span(name: str, **attrs: Any):
+    """A span around one read from the card; its totals count the reads."""
+    if not _STATE.enabled:
+        return _NULL_SPAN
+    return _Span(name, attrs, "read")
+
+
 def instant(name: str, **attrs: Any) -> None:
     """A zero-duration marker event (Chrome "i" phase)."""
     if not _STATE.enabled:
         return
-    _emit({"name": name, "ph": "i", "ts": _now_us(), "s": "t",
+    _emit({"name": name, "ph": "i", "ts": clock_us(), "s": "t",
            "pid": os.getpid(), "tid": threading.get_ident(), "args": attrs})
 
 
@@ -133,15 +225,15 @@ def counter_event(name: str, **values: float) -> None:
     """A Chrome counter ("C") sample, e.g. device memory at a boundary."""
     if not _STATE.enabled:
         return
-    _emit({"name": name, "ph": "C", "ts": _now_us(), "pid": os.getpid(),
+    _emit({"name": name, "ph": "C", "ts": clock_us(), "pid": os.getpid(),
            "args": values})
 
 
 def complete_event(name: str, ts_us: float, dur_us: float,
                    tid: int | str | None = None, **attrs: Any) -> None:
-    """Emit a complete ("X") event from recorded timestamps, on `tid` (a
-    synthetic per-request tid for flows that hop threads; None = the
-    calling thread)."""
+    """Emit a complete ("X") event from recorded timestamps (`ts_us` on the
+    trace's clock, `clock_us`), on `tid` (a synthetic per-request tid for
+    flows that hop threads; None = the calling thread)."""
     if not _STATE.enabled:
         return
     _emit({"name": name, "ph": "X", "ts": ts_us, "dur": dur_us,
@@ -175,7 +267,8 @@ def maybe_wrap(name: str, fn):
 
 def enable_tracing(path: str | None = None) -> None:
     """Turn the sink on. `path` streams JSONL lines to a file (parent dirs
-    created); None buffers events in memory (`drain_events`)."""
+    created); None buffers events in memory (`drain_events`). Reads the
+    clock offset anew and zeroes the `span.*` window totals."""
     st = _STATE
     with st.lock:
         if st._file is not None:
@@ -187,6 +280,8 @@ def enable_tracing(path: str | None = None) -> None:
             d = os.path.dirname(os.path.abspath(path))
             os.makedirs(d, exist_ok=True)
             st._file = open(path, "w")
+        st.offset_ns = _epoch_offset_ns()
+        _metrics.registry().reset("span.")
         st.enabled = True
         if not st._atexit_registered:
             atexit.register(_atexit_flush)
@@ -197,16 +292,15 @@ def enable_tracing(path: str | None = None) -> None:
 def disable_tracing(snapshot_metrics: bool = True) -> str | None:
     """Flush and close the sink; returns the trace path (None in memory
     mode). Appends a final `repro.metrics` metadata event holding the
-    metrics-registry snapshot."""
+    metrics-registry snapshot (the `span.*` window totals included, which
+    stay in the registry until the next `enable_tracing`)."""
     st = _STATE
     if not st.enabled:
         return st.path
     if snapshot_metrics:
-        from . import metrics as _metrics  # local: avoid an import cycle
-
         snap = _metrics.registry().snapshot()
         if snap:
-            _emit({"name": "repro.metrics", "ph": "M", "ts": _now_us(),
+            _emit({"name": "repro.metrics", "ph": "M", "ts": clock_us(),
                    "pid": os.getpid(), "args": snap})
     with st.lock:
         st.enabled = False

@@ -21,8 +21,12 @@ Engines return tensors on their device; a worker copies a block's mean and
 variance to the host once, before it scatters the futures. Exceptions in a
 block reach every caller in it. With tracing on, every request is traced
 under its request ID (`serve_request` with `serve_queue` / `serve_solve`
-children on a synthetic `req:<rid>` tid), and the schedulers export
-`serve.*` gauges and histograms (`repro_torch.obs`).
+children on a synthetic `req:<rid>` tid), the host's work on a block is
+spanned (`serve_batch_wait`: the closed batcher's worker waiting for a
+batch; `serve_assemble`, `serve_scatter`: host-only; `serve_to_host`: one
+span a read from the card), and the schedulers export `serve.*` gauges and
+histograms (`repro_torch.obs`). Times are on the trace's clock
+(`obs.clock_us`).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ class BatcherConfig(NamedTuple):
 class _Request(NamedTuple):
     X: np.ndarray
     future: Future
-    t_enq: float = 0.0  # perf_counter enqueue time (serve.request_wait_ms)
+    t_enq: float = 0.0  # enqueue time, obs.clock_us() (serve.request_wait_ms)
     rid: str = ""       # request ID ("" when tracing is off at submit)
 
 
@@ -62,7 +66,11 @@ _SENTINEL = None  # queue poison pill
 
 def _to_host(mean, var) -> tuple[np.ndarray, np.ndarray]:
     """A block's results on the host: one copy each, before the scatter."""
-    return mean.cpu().numpy(), var.cpu().numpy()
+    with obs.read_span("serve_to_host"):
+        mean = mean.cpu().numpy()
+    with obs.read_span("serve_to_host"):
+        var = var.cpu().numpy()
+    return mean, var
 
 
 def _emit_request_spans(requests, model: str, t_build: float,
@@ -70,19 +78,20 @@ def _emit_request_spans(requests, model: str, t_build: float,
     """Per-request spans, emitted once the block completes: on a synthetic
     `req:<rid>` tid, a `serve_request` parent (enqueue -> reply) holding
     `serve_queue` (enqueue -> block build) and `serve_solve` (the engine
-    launch). The caller checks `obs.tracing_enabled()`."""
-    t_end = time.perf_counter()
+    launch), all in microseconds on the trace's clock. The caller checks
+    `obs.tracing_enabled()`."""
+    t_end = obs.clock_us()
     for r in requests:
         if not r.rid:
             continue
         tid = f"req:{r.rid}"
-        obs.complete_event("serve_request", r.t_enq * 1e6,
-                           (t_end - r.t_enq) * 1e6, tid=tid, rid=r.rid,
-                           model=model, rows=int(r.X.shape[0]))
-        obs.complete_event("serve_queue", r.t_enq * 1e6,
-                           (t_build - r.t_enq) * 1e6, tid=tid, rid=r.rid)
-        obs.complete_event("serve_solve", t_solve0 * 1e6,
-                           (t_solve1 - t_solve0) * 1e6, tid=tid, rid=r.rid)
+        obs.complete_event("serve_request", r.t_enq, t_end - r.t_enq,
+                           tid=tid, rid=r.rid, model=model,
+                           rows=int(r.X.shape[0]))
+        obs.complete_event("serve_queue", r.t_enq, t_build - r.t_enq,
+                           tid=tid, rid=r.rid)
+        obs.complete_event("serve_solve", t_solve0, t_solve1 - t_solve0,
+                           tid=tid, rid=r.rid)
 
 
 def _bucket_rows(buckets: tuple, rows: int) -> int:
@@ -96,27 +105,30 @@ def _bucket_rows(buckets: tuple, rows: int) -> int:
 
 def _padded_block(batch: list, buckets: tuple, now: float):
     """(X zero-padded to its bucket, real rows) of a batch of requests,
-    with the batch-close histograms recorded."""
-    obs.histogram("serve.batch_requests").observe(len(batch))
-    wait_h = obs.histogram("serve.request_wait_ms")
-    for r in batch:
-        wait_h.observe((now - r.t_enq) * 1e3)
-    X = np.concatenate([r.X for r in batch], axis=0)
-    rows = X.shape[0]
-    padded = _bucket_rows(buckets, rows)
-    obs.histogram("serve.batch_rows").observe(rows)
-    obs.histogram("serve.batch_pad_rows").observe(padded - rows)
-    Xp = np.zeros((padded,) + X.shape[1:], X.dtype)
-    Xp[:rows] = X
-    return Xp, rows
+    with the batch-close histograms recorded (`now`: obs.clock_us())."""
+    with obs.host_span("serve_assemble"):
+        obs.histogram("serve.batch_requests").observe(len(batch))
+        wait_h = obs.histogram("serve.request_wait_ms")
+        for r in batch:
+            wait_h.observe((now - r.t_enq) / 1e3)
+        X = np.concatenate([r.X for r in batch], axis=0)
+        rows = X.shape[0]
+        padded = _bucket_rows(buckets, rows)
+        obs.histogram("serve.batch_rows").observe(rows)
+        obs.histogram("serve.batch_pad_rows").observe(padded - rows)
+        Xp = np.zeros((padded,) + X.shape[1:], X.dtype)
+        Xp[:rows] = X
+        return Xp, rows
 
 
 def _scatter(requests, mean: np.ndarray, var: np.ndarray) -> None:
-    offset = 0
-    for r in requests:
-        m = r.X.shape[0]
-        r.future.set_result((mean[offset:offset + m], var[offset:offset + m]))
-        offset += m
+    with obs.host_span("serve_scatter"):
+        offset = 0
+        for r in requests:
+            m = r.X.shape[0]
+            r.future.set_result((mean[offset:offset + m],
+                                 var[offset:offset + m]))
+            offset += m
 
 
 class MicroBatcher:
@@ -149,7 +161,7 @@ class MicroBatcher:
         if rid is None and obs.tracing_enabled():
             rid = obs.next_request_id()
         f: Future = Future()
-        self._q.put(_Request(X, f, time.perf_counter(), rid or ""))
+        self._q.put(_Request(X, f, obs.clock_us(), rid or ""))
         return f
 
     def predict(self, Xstar, timeout: float | None = None):
@@ -179,41 +191,47 @@ class MicroBatcher:
 
     def _worker(self) -> None:
         while True:
-            item = self._q.get()
-            if item is _SENTINEL:
-                return
-            batch = [item]
-            rows = item.X.shape[0]
-            deadline = time.monotonic() + self.config.max_wait_ms / 1e3
-            stop = False
-            while rows < self.config.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if nxt is _SENTINEL:
-                    stop = True
-                    break
-                batch.append(nxt)
-                rows += nxt.X.shape[0]
-            self._run_batch(batch)
+            with obs.host_span("serve_batch_wait"):
+                batch, stop = self._next_batch()
+            if batch:
+                self._run_batch(batch)
             if stop:
                 return
 
+    def _next_batch(self) -> tuple[list, bool]:
+        """(the next batch, whether the queue was closed): the first queued
+        request, then whatever arrives until `max_batch` rows are waiting or
+        `max_wait_ms` has passed."""
+        item = self._q.get()
+        if item is _SENTINEL:
+            return [], True
+        batch = [item]
+        rows = item.X.shape[0]
+        deadline = time.monotonic() + self.config.max_wait_ms / 1e3
+        while rows < self.config.max_batch:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if nxt is _SENTINEL:
+                return batch, True
+            batch.append(nxt)
+            rows += nxt.X.shape[0]
+        return batch, False
+
     def _run_batch(self, batch: list) -> None:
         try:
-            now = time.perf_counter()
-            obs.gauge("serve.queue_depth").set(self._q.qsize())
+            now = obs.clock_us()
             Xp, rows = _padded_block(batch, self._buckets, now)
             padded = Xp.shape[0]
-            t0 = time.perf_counter()
+            t0 = obs.clock_us()
             with obs.span("serve_batch", requests=len(batch), rows=rows,
                           padded=padded):
                 mean, var = _to_host(*self.engine.predict(Xp))
-            t1 = time.perf_counter()
+            t1 = obs.clock_us()
             _scatter(batch, mean, var)
             if obs.tracing_enabled():
                 _emit_request_spans(batch, "micro", now, t0, t1)
@@ -255,7 +273,7 @@ class _Block(NamedTuple):
     X: np.ndarray           # (padded, d) assembled + zero-padded queries
     rows: int               # real rows (<= padded)
     requests: tuple         # _Request slices, in concatenation order
-    t_build: float = 0.0    # perf_counter at assembly (serve_queue span end)
+    t_build: float = 0.0    # obs.clock_us() at assembly (serve_queue span end)
 
 
 class ContinuousBatcher:
@@ -374,7 +392,7 @@ class ContinuousBatcher:
             if model not in self._pending:
                 raise KeyError(f"model {model!r} not registered")
             self._pending[model].append(
-                _Request(X, f, time.perf_counter(), rid or ""))
+                _Request(X, f, obs.clock_us(), rid or ""))
             self._total_rows += X.shape[0]
             depth = len(self._pending[model])
             self._lock.notify_all()
@@ -457,7 +475,7 @@ class ContinuousBatcher:
             obs.gauge(f"serve.queue_depth.{name}").set(depth)
             obs.gauge(f"serve.deficit.{name}").set(deficit)
             obs.gauge("serve.inflight").set(inflight)
-            now = time.perf_counter()
+            now = obs.clock_us()
             try:
                 Xp, rows = _padded_block(batch, self._buckets, now)
             except ValueError as e:  # requests of different widths
@@ -484,12 +502,12 @@ class ContinuousBatcher:
                     raise KeyError(
                         f"model {block.model!r} removed before serving")
                 engine = replicas[worker_id % len(replicas)]
-                t0 = time.perf_counter()
+                t0 = obs.clock_us()
                 with obs.span("serve_block", model=block.model,
                               requests=len(block.requests), rows=block.rows,
                               padded=block.X.shape[0]):
                     mean, var = _to_host(*engine.predict(block.X))
-                t1 = time.perf_counter()
+                t1 = obs.clock_us()
                 _scatter(block.requests, mean, var)
                 if obs.tracing_enabled():
                     _emit_request_spans(block.requests, block.model,

@@ -101,7 +101,9 @@ class PredictionEngine:
     def predict(self, Xstar) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, var) for (m, d) query points; any m, one chunk shape.
         Under tracing a `serve_predict` span covers the call (synchronized
-        on the card); the `serve.predict_ms` / `serve.predict_rows`
+        on the card), with the Morton sort's read of the queries
+        (`serve_sort_read`) and the sort itself (`serve_morton_sort`,
+        host-only) inside it; the `serve.predict_ms` / `serve.predict_rows`
         histograms record every call."""
         t0 = time.perf_counter()
         with obs.span("serve_predict"):
@@ -113,8 +115,11 @@ class PredictionEngine:
             if self.sort_queries and m > 1:
                 # the order comes from the host (a few query rows); the
                 # inverse permutation is a scatter on the device
-                order = torch.as_tensor(morton_order(Xstar.cpu().numpy()),
-                                        device=Xstar.device).long()
+                with obs.read_span("serve_sort_read"):
+                    Xh = Xstar.cpu().numpy()
+                with obs.host_span("serve_morton_sort"):
+                    order = morton_order(Xh)
+                order = torch.as_tensor(order, device=Xstar.device).long()
                 inv = torch.empty_like(order)
                 inv[order] = torch.arange(m, device=Xstar.device)
                 Xstar = Xstar[order]

@@ -26,7 +26,10 @@ operator registry. The operator executes a `SparsePlan`:
     card. Its rows sum their column tiles in ascending order and a tile of
     zeros adds exactly nothing, so a query's result is the same bits
     whatever chunk it is served in (the engine's sorted, chunked
-    predictions equal the unchunked ones).
+    predictions equal the unchunked ones). The chunk's tile list is read
+    to the host (the `sparse_tile_count` and `sparse_tile_list` read
+    spans), where its CSR is built (`_cross_csr`, the `sparse_csr` host
+    span).
 
 When `OperatorConfig.plan` is None the operator builds one at construction
 and records it on its config, so posterior artifacts capture the plan the
@@ -45,6 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kernels_math import (
     kernel_matrix,
     noise_variance,
@@ -71,6 +75,23 @@ from .plan import SparsePlan, build_plan, chunk_sliced_plan, spec_support_radius
 
 _QUERY_TILE = 64     # rows per tile of a query chunk in `cross_matvec`
 _SEGMENT_TILES = 32  # plan tiles per column segment of `cross_matvec`
+
+
+def _cross_csr(tiles: np.ndarray, m: int):
+    """The CSR of a query chunk's launch, on the host (a `sparse_csr` host
+    span): every 64-row query tile of the chunk's m rows against the active
+    column tiles, the list cut into segments of _SEGMENT_TILES consecutive
+    plan tiles (boundaries fixed in the plan's tile order, so they do not
+    depend on the chunk), each segment a separate copy of the query rows.
+    Returns (segments, row_ptr, cols, launch order: longest row first)."""
+    with obs.host_span("sparse_csr"):
+        q = -(-m // _QUERY_TILE)
+        segs, starts = np.unique(tiles // _SEGMENT_TILES, return_index=True)
+        bounds = np.append(starts, tiles.shape[0])
+        cols = np.concatenate([np.tile(tiles[a:b], q)
+                               for a, b in zip(bounds[:-1], bounds[1:])])
+        row_ptr = np.concatenate([[0], np.cumsum(np.repeat(np.diff(bounds), q))])
+        return len(segs), row_ptr, cols, longest_row_first(row_ptr)
 
 
 def _inner_block_fn(kernel, compute_dtype) -> Callable:
@@ -224,7 +245,9 @@ class BlockSparseOperator(KernelOperator):
         ppass = fused_pass_or_none(self.config.kernel, self.params)
         Vs = V[self._perm]
         if ppass is not None:
-            out = self._cross_fused(ppass, Z, Vs, tiles.cpu().numpy(), cdt)
+            with obs.read_span("sparse_tile_list"):
+                tiles = tiles.cpu().numpy()
+            out = self._cross_fused(ppass, Z, Vs, tiles, cdt)
         else:
             idx = tile_rows(tiles, plan.tile, plan.n)
             out = _inner_block_fn(self.config.kernel, cdt)(
@@ -246,7 +269,9 @@ class BlockSparseOperator(KernelOperator):
         gap = torch.maximum(gap, torch.clamp(torch.min(Z, 0).values - hi,
                                              min=0.0))
         active = torch.sum(gap * gap, 1) < support * support
-        return torch.nonzero(active)[:, 0].to(torch.int32)
+        with obs.read_span("sparse_tile_count"):  # nonzero reads its count
+            tiles = torch.nonzero(active)[:, 0]
+        return tiles.to(torch.int32)
 
     def cross_launch_operands(self, Z: torch.Tensor, V: torch.Tensor):
         """(args, kwargs) of the one `kmvm_blocksparse` launch that
@@ -257,43 +282,36 @@ class BlockSparseOperator(KernelOperator):
             V = V[:, None]
         ppass = fused_pass_or_none(self.config.kernel, self.params)
         tiles = self._active_tiles(Z).cpu().numpy()
-        return self._cross_operands(ppass, Z, V[self._perm], tiles,
+        return self._cross_operands(ppass, Z, V[self._perm],
+                                    _cross_csr(tiles, Z.shape[0]),
                                     _compute_dtype_of(self.config, self.dtype))
 
-    def _cross_operands(self, ppass, Z, Vs, tiles: np.ndarray, cdt):
-        """Every 64-row query tile against the active column tiles, the
-        list cut into segments of _SEGMENT_TILES consecutive plan tiles
-        (boundaries fixed in the plan's tile order, so they do not depend
-        on the chunk); each segment is a separate copy of the query rows in
-        the launch, so a short chunk still fills the card. The launch order
-        (longest segment first) comes with the chunk's CSR, on the host."""
+    def _cross_operands(self, ppass, Z, Vs, csr, cdt):
+        """The launch's operands for a query chunk and its CSR (`_cross_csr`):
+        the query rows pre-scaled, padded to whole 64-row tiles and copied
+        once per column segment, so a short chunk still fills the card."""
+        nseg, row_ptr, cols, order = csr
         m = Z.shape[0]
-        q = -(-m // _QUERY_TILE)
-        seg_of = tiles // _SEGMENT_TILES
-        segs, starts = np.unique(seg_of, return_index=True)
-        bounds = np.append(starts, tiles.shape[0])
-        cols = np.concatenate([np.tile(tiles[a:b], q)
-                               for a, b in zip(bounds[:-1], bounds[1:])])
-        row_ptr = np.concatenate([[0], np.cumsum(np.repeat(np.diff(bounds), q))])
         dev = Z.device
         Xp, Vp, scalars = fused_operands(ppass, self._Xs, Vs, cdt)
         Zp = _prescale(ppass, Z, Xp.dtype)
         if m % _QUERY_TILE:  # each segment's copy starts on a tile boundary
-            Zp = torch.cat([Zp, Zp.new_zeros((q * _QUERY_TILE - m, Zp.shape[1]))])
-        return ((ppass.components, Zp.repeat(len(segs), 1), Xp, Vp, scalars,
+            pad = -(-m // _QUERY_TILE) * _QUERY_TILE - m
+            Zp = torch.cat([Zp, Zp.new_zeros((pad, Zp.shape[1]))])
+        return ((ppass.components, Zp.repeat(nseg, 1), Xp, Vp, scalars,
                  torch.as_tensor(row_ptr, dtype=torch.int32, device=dev),
                  torch.as_tensor(cols, dtype=torch.int32, device=dev)),
                 {"tile": self.plan.tile, "row_tile": _QUERY_TILE,
-                 "row_order": torch.as_tensor(longest_row_first(row_ptr),
-                                              device=dev)})
+                 "row_order": torch.as_tensor(order, device=dev)})
 
     def _cross_fused(self, ppass, Z, Vs, tiles: np.ndarray, cdt):
         """One block-sparse launch for a query chunk (`_cross_operands`);
         the per-segment partials are summed in segment order. A segment
         whose tiles all contribute zero for a row adds exactly zero, so a
         row's bits do not depend on the chunk it is served in."""
-        args, kwargs = self._cross_operands(ppass, Z, Vs, tiles, cdt)
-        m, nseg = Z.shape[0], len(np.unique(tiles // _SEGMENT_TILES))
+        csr = _cross_csr(tiles, Z.shape[0])
+        args, kwargs = self._cross_operands(ppass, Z, Vs, csr, cdt)
+        m, nseg = Z.shape[0], csr[0]
         part = kmvm_blocksparse(*args, **kwargs).view(nseg, -1, Vs.shape[1])
         out = part[0]
         for s in range(1, nseg):  # in segment order, for any chunk

@@ -184,12 +184,15 @@ def _request_spans(batcher_cls, config_cls, tracer, to_out):
 
 def test_request_spans_match_reference():
     """The scheduler's spans (per-request flow and the block span): the
-    reference's names and argument keys, one synthetic tid per request."""
+    reference's names and argument keys, one synthetic tid per request;
+    beside them only the port's spans of the host's work on a block."""
     spans, tids = _request_spans(ContinuousBatcher, SchedulerConfig, obs,
                                  torch.as_tensor)
     spans_ref, tids_ref = _request_spans(RefBatcher, RefSchedulerConfig,
                                          ref_obs, np.asarray)
-    assert spans == spans_ref
+    host_work = {"serve_assemble", "serve_scatter", "serve_to_host"}
+    assert set(spans) - set(spans_ref) == host_work
+    assert {k: v for k, v in spans.items() if k not in host_work} == spans_ref
     assert {"serve_request", "serve_queue", "serve_solve",
             "serve_block"} <= set(spans)
     assert len(tids) == len(tids_ref) == 5

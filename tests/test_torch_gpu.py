@@ -12,6 +12,7 @@ only in summation order.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -687,3 +688,64 @@ def test_b1_b2_at_d960_on_pooled_backbone_features(cuda, t):
             assert err <= TOL[torch.float32] * float(torch.sum(torch.abs(terms[q]))), q
         else:
             assert _rel_err(dots[q], ref_dots[q]) <= TOL[torch.float32], q
+
+
+def test_serving_spans_stay_off_the_cards_timeline(cuda):
+    """Two 4096-row requests through a MicroBatcher on a block-sparse engine
+    (the benchmark's batcher settings), traced under `torch.profiler` with
+    CUDA: no device-side event carries a program span's name, so the card's
+    busy time counts device work only, and every host-only span is a host
+    range of the profile at its JSONL stamp (one clock). The spans run on
+    the batcher's thread, and the profiler records ranges of other threads
+    than its own only with `profile_all_threads`."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.core.kernels_math import init_kernel_params
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.serve import (BatcherConfig, MicroBatcher, PredictionEngine,
+                                   fit_posterior)
+
+    X, y = _spatial(20000, 9)
+    Z, _ = _spatial(4096, 10)
+    kernel = "matern32 * wendland2"
+    op = make_operator(OperatorConfig(kernel=kernel, backend="blocksparse", row_block=256),
+                       X, init_kernel_params(kernel, lengthscale=0.2, radius=0.15,
+                                             noise=0.1, device=cuda), device=cuda)
+    art = fit_posterior(op, y, v0=torch.ones(20000, device=cuda), precond_rank=20,
+                        lanczos_rank=32)
+    engine = PredictionEngine(art, chunk_size=1024, device=cuda)
+    config = BatcherConfig(max_batch=128, max_wait_ms=2.0, bucket_sizes=(16, 64, 128))
+    with MicroBatcher(engine, config) as mb:
+        mb.submit(Z).result(timeout=120)          # every kernel built
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            obs.enable_tracing(None)
+            try:
+                for _ in range(2):
+                    mb.submit(Z).result(timeout=120)
+                deadline = time.monotonic() + 30
+                while mb.batches_run < 3 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                torch.cuda.synchronize()
+            finally:
+                obs.disable_tracing(snapshot_metrics=False)
+    spans = [e for e in obs.drain_events() if e.get("ph") == "X" and "span_id" in e]
+    kinds = {k[len("span."):]: v["kind"] for k, v in obs.registry().snapshot().items()
+             if k.startswith("span.") and v["count"]}
+    assert mb.batches_run == 3 and kinds["sparse_csr"] == "host"
+    events = [(e.name(), "cuda" in str(e.device_type()).lower(), e.start_ns() / 1e3)
+              for e in prof.profiler.kineto_results.events()]
+    assert any(dev for _, dev, _ in events)        # the card's timeline was traced
+    assert not {n for n, dev, _ in events if dev} & set(kinds)
+    host = {}
+    for n, dev, start in events:
+        if not dev:
+            host.setdefault(n, []).append(start)
+    host_spans = [e for e in spans if kinds[e["name"]] == "host"]
+    assert {e["name"] for e in host_spans} == {
+        "serve_batch_wait", "serve_assemble", "serve_scatter", "serve_morton_sort",
+        "sparse_csr"}
+    for e in host_spans:
+        assert min(abs(e["ts"] - s) for s in host.get(e["name"], [float("inf")])) <= 500.0, e
