@@ -28,6 +28,12 @@ caught and skipped):
    matern32, t = 1 and 9, in ps per kernel entry (the differences give the
    cost of one feature, of one epilogue factor, of K @ V and of B2's and
    B3's schedules beside B1's).
+   Then B5 (`kgrad_fused`, the Eq. 2 backward's kernel) at (2^16, 2^16,
+   d 9, 9 column pairs) on he-train's matern32 hyperparameters: against
+   its plain version in fp64 (1e-4 of each output), timed beside that
+   plain version in fp32, the autograd loop it replaces at 512-row blocks
+   and `kgrad_grads` (the kernel and the host's chain rule). Its launches
+   per training step are read in phase 4c's traced step.
 4. Serve: the port's `serve_gp` launcher in-process, twice, on the
    houseelectric analogue (d = 9) at n = 2^16, matern32 on the `pallas`
    backend in fp32. The first run trains the hyperparameters with
@@ -761,6 +767,59 @@ def phase_kernels(X_train) -> dict:
             "costs": entry_cost_table()}
 
 
+# B5 at the training shape: he-train's matern32 hyperparameters (the
+# benchmark's houseelectric-2e16), 1 + 8 probe column pairs
+KGRAD_HYP = {"lengthscale": 2.4557, "outputscale": 0.6140, "noise": 0.0646}
+KGRAD_T = 9
+
+
+def phase_kgrad(X_train) -> dict:
+    """B5 (`kernels.kgrad`, the Eq. 2 backward's kernel) at (n, n, d, 9
+    column pairs): against its plain version in fp64, timed beside that
+    plain version in fp32 and beside the autograd loop it replaces
+    (`partitioned.quad_form_partials` at the pallas operator's 512-row
+    blocks), with the host's chain rule (`ops.kgrad_grads`)."""
+    from repro_torch.core import partitioned
+    from repro_torch.core.kernels_math import init_params
+    from repro_torch.kernels import kgrad
+    from repro_torch.kernels.ops import kgrad_grads, kgrad_pass_or_none
+
+    n, d = X_train.shape
+    params = init_params(device=DEV, **KGRAD_HYP)
+    ppass = kgrad_pass_or_none("matern32", params, d)
+    Xs = (X_train / ppass.lengthscale).contiguous()
+    scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=DEV)
+                           for v in ppass.scalars])
+    g = torch.Generator(device=DEV).manual_seed(11)
+    A = torch.randn((n, KGRAD_T), generator=g, device=DEV)
+    V = torch.randn((n, KGRAD_T), generator=g, device=DEV)
+    comps = ppass.components
+    out = kgrad.kgrad_fused(comps, Xs, A, V, scalars)
+    want = kgrad.kgrad_plain(comps, Xs.double(), A.double(), V.double(),
+                             scalars.double())
+    rel = float(((out.double() - want).abs() / want.abs()).max())
+    if rel > 1e-4:
+        raise SystemExit(f"[kgrad] MISMATCH {tuple(out.tolist())} vs {tuple(want.tolist())}")
+    ms = _time_ms(lambda: kgrad.kgrad_fused(comps, Xs, A, V, scalars), 5)
+    grads_ms = _time_ms(lambda: kgrad_grads("matern32", X_train, A, V, params), 3)
+
+    def once(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    plain_ms = once(lambda: kgrad.kgrad_plain(comps, Xs, A, V, scalars))
+    autograd_ms = once(lambda: partitioned.quad_form_partials(
+        "matern32", X_train, X_train, A, V, params, row_block=512))
+    row = {"shape": (n, n, d, KGRAD_T), "ms": ms, "grads_ms": grads_ms,
+           "plain_ms": plain_ms, "autograd_ms": autograd_ms, "max_rel_err": rel,
+           **_bounds(comps, n, n, d, KGRAD_T, 4, False)}
+    log(f"[kgrad] {json.dumps(row)}")
+    return row
+
+
 def _time_row(name, shape, components, kern, plain, reps, plain_reps) -> dict:
     """One timing row: the kernel against its plain version (2e-4 of
     max|out|), then both timed with CUDA events, beside the bound."""
@@ -1234,10 +1293,11 @@ def phase_traced_fit(s) -> dict:
     through `obs_report --compare-model --health`; then one traced cold
     `WarmStartEngine.step` at the trained parameters under
     whose B1 + B2 launches must equal its cg_solve span's modeled
-    launches."""
+    launches, and whose Eq. 2 backward must be one B5 launch on the fused
+    route."""
     from repro_torch import obs
     from repro_torch.core.gp import ExactGP, ExactGPConfig
-    from repro_torch.kernels import kmvm
+    from repro_torch.kernels import kgrad, kmvm
     from repro_torch.launch import obs_report
     from repro_torch.obs import health
     from repro_torch.obs.measure import phase_model_comparison
@@ -1322,27 +1382,33 @@ def phase_traced_fit(s) -> dict:
     health_events = health.load_health(hpath)
 
     # one traced cold step at the trained parameters: the launches the card
-    # made against the cost model's cg_solve launches (the other phases run
-    # plain PyTorch: pivot rows, the SLQ eigensolves, the autograd backward)
+    # made against the cost model's cg_solve launches, and the Eq. 2
+    # backward's B5 launches and route (the other phases run plain PyTorch:
+    # pivot rows, the SLQ eigensolves)
     engine = WarmStartEngine(gp.config.mll_config(), cfg.warm_config())
     gen = torch.Generator(device=DEV).manual_seed(1)
     obs.enable_tracing(None)
     torch.cuda.synchronize()
     kmvm.reset_launch_counts()
+    kgrad.reset_launches()
     t1 = time.perf_counter()
     engine.step(X, y, res1.params, gen)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t1
     step_counts = dict(kmvm.launch_counts)
+    b5_launches = kgrad.launches
     obs.disable_tracing(snapshot_metrics=False)
     step_events = obs.drain_events()
     cg = [e for e in step_events if e.get("name") == "cg_solve"]
     modeled = cg[0]["args"]["modeled_launches"] if len(cg) == 1 else None
     b12 = step_counts["kmvm"] + step_counts["kmvm_dots"]
+    routes = [e["args"].get("route") for e in step_events
+              if e.get("name") == "eq2_backward"]
     log(f"[obs] cold step at the trained params: {engine.telemetry[-1]['mode']}"
         f", {step_s:.3f} s, cg_iters_per_rhs "
         f"{engine.telemetry[-1]['cg_iters_per_rhs']}, B1 + B2 launches "
-        f"{step_counts} = {b12}, cg_solve modeled launches {modeled}")
+        f"{step_counts} = {b12}, cg_solve modeled launches {modeled}, "
+        f"B5 launches {b5_launches}, eq2_backward routes {routes}")
     gates = {
         "traced and untraced fits give the same modes": modes0 == modes1,
         "loss traces agree (bit for bit, else within 1e-6)":
@@ -1352,6 +1418,8 @@ def phase_traced_fit(s) -> dict:
             mll_ms > 0 and abs(phase_ms - mll_ms) <= 0.01 * mll_ms,
         "cold step's B1 + B2 launches == cg_solve's modeled launches":
             modeled is not None and b12 == modeled,
+        "cold step's Eq. 2 backward is one B5 launch on the fused route":
+            b5_launches == 1 and routes == ["fused"],
         "memory snapshot of cuda0 > 0": mem.get("cuda0", 0) > 0,
         "no health event of severity error":
             not [e for e in health_events if e.get("severity") == "error"],
@@ -1365,7 +1433,7 @@ def phase_traced_fit(s) -> dict:
             "share": share, "wall_ms": wall, "covered_ms": covered,
             "mll_ms": mll_ms, "phase_ms": phase_ms,
             "step_launches": step_counts, "modeled_launches": modeled,
-            "step_s": step_s,
+            "b5_launches": b5_launches, "step_s": step_s,
             "health": [e["kind"] for e in health_events], "memory": mem}
 
 
@@ -3183,6 +3251,7 @@ def main() -> None:
     X_train = torch.as_tensor(np.asarray(s.X_train[:N_TRAIN], np.float32),
                               device=DEV)
     kern = phase_kernels(X_train)
+    b5 = phase_kgrad(X_train)
     del X_train
     Xf, yf, lf = make_spatial_field(SPATIAL_N + SPATIAL_TEST, seed=DATA_SEED)
     b4 = phase_blocksparse(Xf[:SPATIAL_N])
@@ -3194,7 +3263,7 @@ def main() -> None:
         art, torch.as_tensor(s.y_train[:N_TRAIN], dtype=torch.float32,
                              device=DEV), s.X_test)
     table1 = phase_table1(serve, art, s)
-    phase_traced_fit(s)
+    traced = phase_traced_fit(s)
     del art, s
     spatial = phase_spatial(Xf[:SPATIAL_N], yf[:SPATIAL_N],
                             Xf[SPATIAL_N:], lf[SPATIAL_N:])
@@ -3276,6 +3345,15 @@ def main() -> None:
         "cross_chunk_rel_err": spatial["cross_err"],
         "cross_chunk_plain_ms": spatial["cross_plain_ms"],
         "cross_chunk_bound_ms": spatial["cross_bound"]})
+    kernels.append({
+        "name": "kgrad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kgrad.cu",
+        "replaces": None, "differentiates": "src/repro/core/partitioned.py:207",
+        "matched": True, "launches_per_step": traced["b5_launches"],
+        "max_rel_err": b5["max_rel_err"], "ms": b5["ms"], "grads_ms": b5["grads_ms"],
+        "plain_ms": b5["plain_ms"], "autograd_ms": b5["autograd_ms"],
+        "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+        "tc_bound_ms": b5["tc_bound_ms"], "library_ms": None, "shape": b5["shape"]})
     row = b3["rows"][1]  # t = 9, the training mBCG block
     kernels.append({
         "name": "kmvm_chunk", "route": "cuda",

@@ -694,8 +694,10 @@ class ShardedOperator(KernelOperator):
         raise NotImplementedError(
             "ShardedOperator is solve-only; see cross_matvec")
 
-    def quad_form_grads(self, A_loc: torch.Tensor, V_loc: torch.Tensor):
-        """This rank's PARTIAL (g_params, g_X) of sum_j a_j^T K_hat v_j.
+    def quad_form_grads(self, A_loc: torch.Tensor, V_loc: torch.Tensor,
+                        need_x: bool = True):
+        """This rank's PARTIAL (g_params, g_X) of sum_j a_j^T K_hat v_j
+        (g_X whatever `need_x` says; `dist_mll_backward` drops it).
 
         With o = reduce_scatter(partial_rows), sum_rank <A_loc, o_loc> =
         sum_rank <A_rows, partial_rows> where A_rows = all_gather(A_loc) over

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from .kernels_math import (
     constant_mean,
@@ -156,35 +157,62 @@ def operator_mll_value(n: int, solved, logdet):
                           pinv_z), state
 
 
-def operator_mll_quad_grads(make_op, X, u_y, U, pinv_z):
-    """Paper Eq. 2 assembly: (g_params, g_X) of the MLL w.r.t. (theta, X),
-    before the g_value scaling and the raw_mean term. The data-fit term
-    -u_y^T dK u_y and the trace term (1/t) sum_i u_i^T dK P^{-1} z_i are
-    linear in the (a, v) column pairs, so they batch into ONE
-    `quad_form_grads` call over t+1 columns."""
+def eq2_route_counter(route: str) -> obs.Counter:
+    """The registry's count of Eq. 2 backwards that took `route` ("fused" or
+    "autograd", `KernelOperator.routed_quad_form_grads`)."""
+    return obs.counter(f"mll.eq2_route.{route}")
+
+
+def _routed_quad_grads(make_op, X, u_y, U, pinv_z, need_x):
+    """`operator_mll_quad_grads`'s (g_params, g_X) and the route the
+    operator's contraction took, counted (`eq2_route_counter`)."""
     t = max(U.shape[1], 1)
     op = make_op(X)
     A = torch.cat([-u_y[:, None], U / t], dim=1)
     V = torch.cat([u_y[:, None], pinv_z.to(U.dtype)], dim=1)
-    gp, gx = op.quad_form_grads(A, V)
-    return params_map(lambda a: -0.5 * a, gp), -0.5 * gx
+    gp, gx, route = op.routed_quad_form_grads(A, V, need_x=need_x)
+    eq2_route_counter(route).inc()
+    return (params_map(lambda a: -0.5 * a, gp),
+            None if gx is None else -0.5 * gx, route)
 
 
-def operator_mll_backward(cfg: MLLConfig, X, params, u_y, U, pinv_z, g_value):
-    """(g_X, g_y, g_params) of g_value * mll from the saved forward solves.
+def operator_mll_quad_grads(make_op, X, u_y, U, pinv_z, need_x: bool = True):
+    """Paper Eq. 2 assembly: (g_params, g_X) of the MLL w.r.t. (theta, X),
+    before the g_value scaling and the raw_mean term. The data-fit term
+    -u_y^T dK u_y and the trace term (1/t) sum_i u_i^T dK P^{-1} z_i are
+    linear in the (a, v) column pairs, so they batch into ONE
+    `quad_form_grads` call over t+1 columns. With need_x False the
+    operator may leave g_X out (None)."""
+    return _routed_quad_grads(make_op, X, u_y, U, pinv_z, need_x)[:2]
 
-    The backward contracts in full precision through the backend that
-    `backward_backend_for` names (every dense backend shares the
-    partitioned blockwise partials; blocksparse keeps its own)."""
+
+def routed_mll_backward(cfg: MLLConfig, X, params, u_y, U, pinv_z, g_value,
+                        need_x: bool = True):
+    """`operator_mll_backward`'s (g_X, g_y, g_params) and the route its Eq. 2
+    contraction took ("fused" or "autograd")."""
     bwd_cfg = cfg.operator_config()._replace(
         compute_dtype=None, backend=backward_backend_for(cfg.backend))
-    g_params, g_X = operator_mll_quad_grads(
+    g_params, g_X, route = _routed_quad_grads(
         lambda x: make_operator(bwd_cfg, x, params, device=x.device),
-        X, u_y, U, pinv_z)
+        X, u_y, U, pinv_z, need_x)
     # mean parameter: d mll / d mu = sum(u_y)
     g_params = g_params._replace(raw_mean=g_params.raw_mean + torch.sum(u_y))
     g_params = params_map(lambda a: g_value * a, g_params)
-    return g_value * g_X, g_value * (-u_y), g_params
+    return ((None if g_X is None else g_value * g_X), g_value * (-u_y),
+            g_params, route)
+
+
+def operator_mll_backward(cfg: MLLConfig, X, params, u_y, U, pinv_z, g_value,
+                          need_x: bool = True):
+    """(g_X, g_y, g_params) of g_value * mll from the saved forward solves.
+
+    The backward contracts in full precision through the backend that
+    `backward_backend_for` names (dense and partitioned share the blockwise
+    autograd partials; pallas takes its fused kernel where it can,
+    blocksparse keeps its own). need_x False says the caller drops g_X,
+    which may then come back None (fixed-input training needs none)."""
+    return routed_mll_backward(cfg, X, params, u_y, U, pinv_z, g_value,
+                               need_x)[:3]
 
 
 class _ExactMLL(torch.autograd.Function):
@@ -212,7 +240,8 @@ class _ExactMLL(torch.autograd.Function):
     def backward(ctx, g_value, *_):
         X, u_y, U, pinv_z = ctx.saved_tensors
         g_X, g_y, g_params = operator_mll_backward(
-            ctx.cfg, X, ctx.params, u_y, U, pinv_z, g_value)
+            ctx.cfg, X, ctx.params, u_y, U, pinv_z, g_value,
+            need_x=ctx.needs_input_grad[3])
         return (None, None, None, g_X, g_y, *params_leaves(g_params))
 
 

@@ -10,6 +10,9 @@ exposes:
     cross_matvec(Z, V)   K(Z, X) @ V      rectangular MVM for prediction
     quad_form_grads(A,V) (g_params, g_X) of sum_j a_j^T K_hat v_j — the
                          bounded-memory backward surface of the MLL
+    routed_quad_form_grads(A,V)  the same and how it contracted:
+                         "autograd" (the blockwise autograd loop) or
+                         "fused" (one kernel)
     kernel_rows(Z)       K(Z, X)          dense rows (test oracle RHS)
     prior_diag(Z)        diag(K(Z, Z))
     noise()              sigma^2
@@ -23,10 +26,12 @@ Registry (`make_operator` selects by `OperatorConfig.backend`):
     partitioned   row-block slabs — the paper's O(n)-memory path
     pallas        the Hopper fused-kernel backend: every MVM is the CUDA
                   kernel of `repro_torch.kernels.kmvm` (the slab never
-                  reaches device memory), and a CG iteration is one launch
-                  of its fused-CG variant. The key keeps the reference's
-                  name so that reference configs and artifacts load as
-                  they are.
+                  reaches device memory), a CG iteration is one launch of
+                  its fused-CG variant, and the Eq. 2 backward of a
+                  shared-lengthscale spec is one launch of
+                  `repro_torch.kernels.kgrad` when no X gradient is asked
+                  for. The key keeps the reference's name so that reference
+                  configs and artifacts load as they are.
     blocksparse   distance-pruned MVMs for compactly-supported specs: the
                   block-sparse CUDA kernel over a `repro_torch.sparse`
                   plan (registered lazily, as in the reference)
@@ -225,7 +230,8 @@ class KernelOperator:
     Subclasses implement `matvec`."""
 
     # the backend the MLL's Eq. 2 backward contracts through: the base-class
-    # blockwise partials serve every dense backend; blocksparse has its own
+    # blockwise partials serve dense and partitioned; pallas and blocksparse
+    # have their own
     grad_backend = "partitioned"
     # per-row validity mask of the operator's local vector layout: None
     # except on padded sharded geometries, where the MLL forward multiplies
@@ -292,11 +298,14 @@ class KernelOperator:
     def noise(self) -> torch.Tensor:
         return noise_variance(self.params, self.config.noise_floor)
 
-    def quad_form_grads(self, A: torch.Tensor, V: torch.Tensor):
+    def quad_form_grads(self, A: torch.Tensor, V: torch.Tensor,
+                        need_x: bool = True):
         """(g_params, g_X) of q = sum_j a_j^T K_hat v_j, bounded memory: the
         kernel part by `partitioned.quad_form_partials` (one slab and its
         autograd residuals live at a time, half-size row blocks), the
-        sigma^2 sum(A o V) diagonal by autograd on the noise leaf."""
+        sigma^2 sum(A o V) diagonal by autograd on the noise leaf. need_x
+        False lets a backend leave g_X out (None); this loop computes it
+        either way."""
         if A.ndim == 1:
             A = A[:, None]
         if V.ndim == 1:
@@ -305,6 +314,12 @@ class KernelOperator:
             self.config.kernel, self.X, self.X, A, V, self.params,
             row_block=max(self.config.row_block // 2, 64))
         return self._add_noise_grad(gp, A, V), g_rows + g_cols
+
+    def routed_quad_form_grads(self, A: torch.Tensor, V: torch.Tensor,
+                               need_x: bool = True):
+        """(g_params, g_X, route): `quad_form_grads` and how it contracted,
+        here always "autograd"."""
+        return (*self.quad_form_grads(A, V, need_x), "autograd")
 
     def _add_noise_grad(self, gp, A, V):
         """gp + d/dparams [sigma^2(params) sum(A o V)]."""
@@ -421,9 +436,12 @@ class PallasFusedOperator(PartitionedOperator):
     (`kmvm_fused_matmat`), so a CG iteration is one kernel launch plus the
     O(nk) preconditioner apply. With `config.autotune` both take the column
     split `repro_torch.kernels.autotune` picked for (n, d, t); cross launches
-    (serving) keep the static split. On a CPU tensor the kernels run their
-    plain PyTorch versions.
+    (serving) keep the static split. The Eq. 2 backward is one launch of
+    its own kernel where `routed_quad_form_grads` can take it. On a CPU
+    tensor the kernels run their plain PyTorch versions.
     """
+
+    grad_backend = "pallas"
 
     @classmethod
     def slab_block_fn(cls, config: OperatorConfig, operand_dtype) -> Callable:
@@ -471,6 +489,32 @@ class PallasFusedOperator(PartitionedOperator):
                          split_tiles=self._tiles(V.shape[1]))
         out = self._add_noise(out, V)
         return out[:, 0] if squeeze else out
+
+    def routed_quad_form_grads(self, A, V, need_x: bool = True):
+        """On the fused route the kernel's parameter gradients
+        (`kernels.ops.kgrad_grads`, one launch) with the noise term, no g_X
+        (None) and "fused": where no X gradient is wanted, X is not float64
+        on the card (the kernel computes in fp32) and the spec plans to one
+        shared-lengthscale pass the kernel takes. Else the base class's
+        loop and "autograd" (ARD, linear and fallback terms, X gradients,
+        float64 on the card)."""
+        from repro_torch.kernels.ops import kgrad_grads
+
+        if A.ndim == 1:
+            A = A[:, None]
+        if V.ndim == 1:
+            V = V[:, None]
+        gp = None
+        if not need_x and not (self.X.is_cuda and self.X.dtype == torch.float64):
+            gp = kgrad_grads(self.config.kernel, self.X, A.detach(),
+                             V.detach(), self.params)
+        if gp is None:
+            return (*super().quad_form_grads(A, V, need_x), "autograd")
+        return self._add_noise_grad(gp, A, V), None, "fused"
+
+    def quad_form_grads(self, A, V, need_x: bool = True):
+        """`routed_quad_form_grads` without the route."""
+        return self.routed_quad_form_grads(A, V, need_x)[:2]
 
     @property
     def supports_fused_step(self) -> bool:

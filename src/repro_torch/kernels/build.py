@@ -46,6 +46,11 @@ ENTRY_POINTS = {
                           _P], _I),
         "kmvm_error_string": ([_I], ctypes.c_char_p),
     },
+    "kgrad": {
+        "kgrad_fwd": ([_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                       _P], _I),
+        "kgrad_error_string": ([_I], ctypes.c_char_p),
+    },
     "kmvm_sparse": {
         "kmvm_bs_fwd": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _I, _P], _I),

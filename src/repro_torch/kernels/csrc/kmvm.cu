@@ -103,8 +103,6 @@
 
 namespace {
 
-constexpr int LDT = 72;     // row stride of the shared tiles, 8 mod 32
-
 // per t-chunk: threads per block (four warps of 16 rows; at t = 1 two warps
 // per 16 rows, each taking half of a chunk's columns) and the blocks per SM
 // the kernels are compiled for
@@ -140,77 +138,6 @@ struct DenseCols {
     jlim = n;
   }
 };
-
-// ---- TF32 tensor-core products ------------------------------------------
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (x - hi is exact in fp32); with !SPLIT (bf16
-// operands, exact in TF32) hi = x and lo is unused
-template <bool SPLIT>
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  if constexpr (SPLIT) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b over one k8 step: small*big, big*small, then big*big (3xTF32),
-// or the one exact product of bf16 operands
-template <bool SPLIT>
-__device__ __forceinline__ void mma_step(float (&c)[4], const unsigned (&ah)[4],
-                                         const unsigned (&al)[4], float b0,
-                                         float b1) {
-  unsigned bh0, bl0, bh1, bl1;
-  split<SPLIT>(b0, bh0, bl0);
-  split<SPLIT>(b1, bh1, bl1);
-  if constexpr (SPLIT) {
-    mma_tf32(c, al, bh0, bh1);
-    mma_tf32(c, ah, bl0, bl1);
-  }
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void mma_tf32_k4(float (&c)[4], unsigned a0,
-                                            unsigned a1, unsigned b0) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// the same over one k4 step (m16n8k4: half the depth, half the work)
-template <bool SPLIT>
-__device__ __forceinline__ void mma_step_k4(float (&c)[4], const unsigned (&ah)[2],
-                                            const unsigned (&al)[2], float b) {
-  unsigned bh, bl;
-  split<SPLIT>(b, bh, bl);
-  if constexpr (SPLIT) {
-    mma_tf32_k4(c, al[0], al[1], bh);
-    mma_tf32_k4(c, ah[0], ah[1], bl);
-  }
-  mma_tf32_k4(c, ah[0], ah[1], bh);
-}
-
-__device__ __forceinline__ float sum4(float x) {  // over the lanes of a quad
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // One block: out rows [i0, min(i0 + BM, mlim)) = K(Xi rows, Xj[walked
 // columns]) @ V[walked columns]; with ACC, out rows += that product

@@ -3,7 +3,9 @@
 Handles everything the raw kernels do not: planning a KernelSpec into
 fused passes, lengthscale/weight application, the dtype policy, and a
 `block_fn` adapter so `repro_torch.core.partitioned.kmvm_rect` can route
-its per-partition slab MVMs through the kernel.
+its per-partition slab MVMs through the kernel. `kgrad_grads` is the Eq. 2
+backward of a one-pass plan: one launch of the gradient kernel
+(`kernels.kgrad`) and the chain rule to the raw leaves.
 
 Planning (`mvm_plan`), as in `repro.kernels.ops`:
 
@@ -34,9 +36,12 @@ from repro_torch.core.kernels_math import (
     canonicalize_kernel,
     leaf_matrix,
     normalize_components,
+    params_leaves,
+    params_unflatten,
     softplus,
 )
 
+from . import kgrad
 from .kmvm import kmvm_fused, kmvm_fused_chunk, kmvm_fused_dots
 
 
@@ -230,6 +235,54 @@ def fused_pass_or_none(kernel, params) -> _FusedPass | None:
     if len(mp.passes) == 1 and not mp.linear_terms and not mp.fallback_terms:
         return mp.passes[0]
     return None
+
+
+def kgrad_pass_or_none(kernel, params, d: int) -> _FusedPass | None:
+    """The fused pass whose quadratic-form gradient B5 computes, or None:
+    the spec plans to one pass with a shared scalar lengthscale and nothing
+    else, within the kernel's components, factors and features."""
+    ppass = fused_pass_or_none(kernel, params)
+    if (ppass is None or ppass.lengthscale.ndim != 0 or d > kgrad.MAX_FEATURES
+            or not kgrad.takes(ppass.components)):
+        return None
+    return ppass
+
+
+def kgrad_grads(kernel, X, A, V, params):
+    """The gradient tree (shaped like params) of q = sum_j a_j^T K(X, X) v_j,
+    no noise term, by one B5 launch (`kgrad_fused`; its plain version on a
+    CPU tensor, in X's dtype): the kernel's sums in the pass's base weight,
+    lengthscale and scalars go to the raw leaves by `torch.autograd.grad`
+    over `mvm_plan`'s scalar graph (softplus, ratios, weights; nothing
+    n-sized). None where `kgrad_pass_or_none` finds no pass."""
+    leaves = [a.detach().requires_grad_(True) for a in params_leaves(params)]
+    with torch.enable_grad():  # also inside an autograd backward
+        ppass = kgrad_pass_or_none(kernel, params_unflatten(params, leaves),
+                                   X.shape[1])
+        if ppass is None:
+            return None
+        cdt = X.dtype if X.device.type == "cpu" else torch.float32
+        ls = ppass.lengthscale
+        scalars = torch.stack([torch.as_tensor(s, device=X.device).to(cdt)
+                               for s in ppass.scalars]).detach()
+        sums = kgrad.kgrad_fused(ppass.components,
+                                 (X / ls.detach()).to(cdt).contiguous(),
+                                 A.to(cdt).contiguous(), V.to(cdt).contiguous(),
+                                 scalars)
+        w0 = ppass.base_weight
+        w0v = w0.detach() if isinstance(w0, torch.Tensor) else w0
+        # the chain rule as the gradient of one scalar, sum_k out_k g_k with
+        # the kernel's g_k held fixed (as grad_outputs, tensors would import
+        # sympy at the first call: ~4 s)
+        terms = [out * g.to(out.dtype).reshape(out.shape)
+                 for out, g in ((w0, sums[0]),
+                                (ls, -2.0 * w0v * sums[1] / ls.detach()),
+                                *zip(ppass.scalars, w0v * sums[2:]))
+                 if isinstance(out, torch.Tensor) and out.requires_grad]
+        g = torch.autograd.grad(sum(terms), leaves, allow_unused=True) \
+            if terms else [None] * len(leaves)
+    return params_unflatten(params, [torch.zeros_like(a) if gi is None else gi
+                                     for a, gi in zip(leaves, g)])
 
 
 def kmvm_fused_matmat(kernel, X, V, R, params, *, compute_dtype=None,

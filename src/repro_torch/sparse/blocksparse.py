@@ -320,7 +320,9 @@ class BlockSparseOperator(KernelOperator):
 
     # -- Eq. 2 backward surface ---------------------------------------------
 
-    def quad_form_grads(self, A: torch.Tensor, V: torch.Tensor):
+    def quad_form_grads(self, A: torch.Tensor, V: torch.Tensor,
+                        need_x: bool = True):
+        del need_x  # g_X comes with the partials either way
         if A.ndim == 1:
             A = A[:, None]
         if V.ndim == 1:

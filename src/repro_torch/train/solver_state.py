@@ -26,7 +26,8 @@ hbm_bytes_modeled); the health sentinels (`obs.health`) run on its aux.
 Under tracing `WarmStartEngine` wraps each of its four pieces,
 precond_build, cg_solve, slq_logdet and eq2_backward, in a span closed by a
 fence, each span carrying its measured ms and its modeled bytes and
-launches.
+launches; the eq2_backward span also names the route the backward took
+("fused" or "autograd", as `routed_mll_backward` reports it).
 """
 
 from __future__ import annotations
@@ -41,10 +42,10 @@ import torch
 from repro_torch import obs
 from repro_torch.core.mll import (
     MLLConfig,
-    operator_mll_backward,
     operator_mll_logdet,
     operator_mll_solve,
     operator_mll_value,
+    routed_mll_backward,
 )
 from repro_torch.core.operators import make_operator
 from repro_torch.core.pcg import SolveState
@@ -131,12 +132,13 @@ class _Phases:
     card) and stamped with its measured ms, the backend and its modeled
     bytes and launches (`obs.mll_phase_costs` at the port's geometry);
     otherwise each phase is a null context. The dispatch sets `res` once
-    the solve has run: the later phases' price depends on its MVMs."""
+    the solve has run (the later phases' price depends on its MVMs) and
+    `route` inside eq2_backward, which its span carries."""
 
     def __init__(self, engine, mode, X):
         self.traced = obs.tracing_enabled()
         self.engine, self.mode, self.X = engine, mode, X
-        self.res = None
+        self.res = self.route = None
         self.ms: dict[str, float] = {}
 
     def __call__(self, phase):
@@ -161,6 +163,8 @@ class _Phases:
                    modeled_launches=cost.launches)
             if phase == "cg_solve":
                 sp.set(cg_iters=int(res.iterations.sum()))
+            if phase == "eq2_backward":
+                sp.set(route=self.route)
 
 
 class _WarmEngineBase:
@@ -281,7 +285,9 @@ class _WarmEngineBase:
 
 class WarmStartEngine(_WarmEngineBase):
     """Stateful MLL value + gradient engine on one device; the gradients are
-    assembled by `operator_mll_backward`."""
+    assembled by `routed_mll_backward`, which needs no X gradient here
+    (the inputs are fixed), so the pallas backend's fused kernel serves
+    it."""
 
     def __init__(self, cfg: MLLConfig, warm: WarmStartConfig | None = None,
                  track_residuals: bool | None = None):
@@ -331,8 +337,8 @@ class WarmStartEngine(_WarmEngineBase):
         (value, aux), (_, u_y, U, pinv_z), solve = operator_mll_value(
             n, solved, logdet)
         with phase("eq2_backward"):
-            _, _, g_params = operator_mll_backward(
-                cfg, X, op.params, u_y, U, pinv_z, -1.0 / n)
+            _, _, g_params, phase.route = routed_mll_backward(
+                cfg, X, op.params, u_y, U, pinv_z, -1.0 / n, need_x=False)
         self._last_phase_ms = phase.ms or None
         new_state = SolverState(solve=solve, precond=precond,
                                 logdet=aux.logdet)

@@ -8,7 +8,7 @@ Marked `gpu`: each test skips (in the `cuda` fixture, never at import) when
 (`--noconftest`: the shared conftest imports JAX, which the port does not
 need.) Tolerances: 2e-4 for fp32 and 5e-2 for bf16, relative to max|out|,
 as the reference's kernel tests use; the kernel and its plain version differ
-only in summation order.
+only in summation order. B5 (`kgrad`) has its own, stated at its tests.
 """
 
 import os
@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import kmvm
+from repro_torch.kernels import kgrad, kmvm
 
 pytestmark = pytest.mark.gpu
 
@@ -749,3 +749,182 @@ def test_serving_spans_stay_off_the_cards_timeline(cuda):
         "sparse_csr"}
     for e in host_spans:
         assert min(abs(e["ts"] - s) for s in host.get(e["name"], [float("inf")])) <= 500.0, e
+
+
+# ---------------------------------------------------------------------------
+# B5: the Eq. 2 backward's kernel (kernels.kgrad)
+# ---------------------------------------------------------------------------
+
+# (components, scalars in scalar_layout order): the kernel's (1, 1) and
+# (2, 2) classes
+KG_SPECS = {
+    "matern32": ((("matern32",),), [1.0, 1.0]),
+    "rbf": ((("rbf",),), [1.0, 1.0]),
+    "matern12": ((("matern12",),), [1.0, 1.0]),
+    "matern52": ((("matern52",),), [1.0, 1.0]),
+    "rq": ((("rq",),), [1.0, 1.0, 2.5]),
+    "wendland2": ((("wendland2",),), [1.0, 0.05]),
+    "wendland4": ((("wendland4",),), [1.0, 0.05]),
+    "0.5*rbf + matern32": ((("rbf",), ("matern32",)), [1.0, 1.0, 0.5, 0.6]),
+    "matern32 * wendland2": ((("matern32", "wendland2"),), [1.0, 1.0, 0.05]),
+    "rq * matern52 + matern12": ((("rq", "matern52"), ("matern12",)),
+                                 [1.0, 1.0, 2.5, 0.7, 0.4, 1.3]),
+}
+KG_CASES = (  # (spec, n, d, t): the training shape, ragged n, d in {2, 9, 16},
+    # t 1 and t 20 (two column passes); every spec at a ragged n
+    *(("matern32",) + s for s in ((65536, 9, 9), (1000, 9, 9), (4097, 9, 9),
+                                   (1000, 2, 9), (4097, 16, 9), (1000, 9, 1),
+                                   (1000, 9, 20))),
+    *((spec, 4097, 9, 9) for spec in KG_SPECS if spec != "matern32"),
+)
+KG_TOL = 1e-4
+
+
+def _kg_inputs(n, d, t, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, s=1.0):
+        return torch.as_tensor(s * rng.standard_normal(shape), dtype=torch.float32,
+                               device=device)
+
+    return arr(n, d, s=2.0 / np.sqrt(d)), arr(n, t), arr(n, t)
+
+
+def _kg_scales(components, scal, want):
+    """Each output's scale: a slot's own magnitude; for S0 and S1, the sum
+    of the magnitudes of the slot sums they add (sum_c w_c |R_wc|, sum_cf
+    w_c |R_qcf|), since two slots of opposite sign can cancel there."""
+    out = want.abs().clone()
+    out[0] = out[1] = 0.0
+    s = 0
+    for kinds in components:
+        out[0] += scal[s] * want[2 + s].abs()
+        s += 1
+        for kind in kinds:
+            out[1] += scal[s] * want[2 + s].abs()   # w_c |R_qcf| = q_cf |dq/dq_cf|
+            s += 2 if kind == "rq" else 1
+    return out
+
+
+@pytest.mark.parametrize("case", KG_CASES, ids=lambda c: f"{c[0]}-n{c[1]}d{c[2]}t{c[3]}")
+def test_kgrad_kernel_matches_plain(cuda, case):
+    """B5 against its plain version run in fp64 on the same fp32 inputs.
+    Tolerance 1e-4 of each output's scale (`_kg_scales`; a thousandth of
+    the largest at least, for an output near zero): both sum in fp64, and
+    the kernel's entries carry fp32 rounding (3xTF32 products, fp32
+    epilogue), ~1e-7 of each term of a sum of zero-mean terms, which leaves
+    ~1e-6 of the sum."""
+    spec, n, d, t = case
+    components, scal = KG_SPECS[spec]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    X, A, V = _kg_inputs(n, d, t, cuda)
+    got = kgrad.kgrad_fused(components, X, A, V, scalars)
+    torch.cuda.synchronize()
+    want = kgrad.kgrad_plain(components, X.double(), A.double(), V.double(),
+                             scalars.double())
+    assert got.shape == want.shape == (2 + len(scal),)
+    floor = 1e-3 * float(want.abs().max())
+    scale = torch.clamp(_kg_scales(components, scal, want), min=floor)
+    err = (got.double() - want).abs() / scale
+    assert float(err.max()) <= KG_TOL, (got, want)
+
+
+def test_kgrad_two_launches_give_the_same_bits(cuda):
+    components, scal = KG_SPECS["0.5*rbf + matern32"]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    X, A, V = _kg_inputs(20000, 9, 9, cuda, seed=1)
+    a = kgrad.kgrad_fused(components, X, A, V, scalars)
+    b = kgrad.kgrad_fused(components, X, A, V, scalars)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_cuda_tensor_never_reaches_kgrad_plain(cuda, monkeypatch):
+    """A CUDA tensor gets B5 (and its launch count moves, apart from
+    kmvm.launch_counts); the wrapper raises on what the kernel does not
+    take."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(kgrad, "kgrad_plain", boom)
+    components, scal = KG_SPECS["matern32"]
+    scalars = torch.tensor(scal, dtype=torch.float32, device=cuda)
+    X, A, V = _kg_inputs(300, 9, 9, cuda)
+    kmvm.reset_launch_counts()
+    before = kgrad.launches
+    kgrad.kgrad_fused(components, X, A, V, scalars)
+    torch.cuda.synchronize()
+    assert kgrad.launches == before + 1
+    assert sum(kmvm.launch_counts.values()) == 0
+    with pytest.raises(ValueError):
+        kgrad.kgrad_fused(components, X.double(), A.double(), V.double(), scalars)
+    with pytest.raises(ValueError):
+        kgrad.kgrad_fused(components, *_kg_inputs(300, 17, 9, cuda), scalars)
+    with pytest.raises(ValueError):
+        kgrad.kgrad_fused(components, X, A[:, :4].contiguous(), V, scalars)
+    with pytest.raises(ValueError):   # three components: the autograd loop's
+        kgrad.kgrad_fused(((("rbf",),) * 3), X, A, V, torch.ones(6, device=cuda))
+
+
+def test_engine_step_fused_route_matches_autograd_on_card(cuda, monkeypatch):
+    """One `WarmStartEngine` step on the card (pallas, matern32, 2^14 rows,
+    d 9, 8 probes): the fused route's gradient against the autograd loop's
+    on the same solves, within 1e-5 relative per leaf."""
+    from repro_torch.core.kernels_math import init_params, params_leaves
+    from repro_torch.core.mll import MLLConfig, eq2_route_counter
+    from repro_torch.kernels import ops
+    from repro_torch.train.solver_state import WarmStartEngine
+
+    rng = np.random.default_rng(2)
+    X = torch.as_tensor(rng.standard_normal((16384, 9)) / 3.0, dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(np.sin(X.cpu().numpy().sum(1)), dtype=torch.float32,
+                        device=cuda)
+    p = init_params(lengthscale=1.0, noise=0.05, device=cuda)
+    cfg = MLLConfig(kernel="matern32", backend="pallas", precond_rank=50,
+                    num_probes=8, cg_tol=1.0)
+
+    def step():
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        return params_leaves(WarmStartEngine(cfg).step(X, y, p, gen)[2])
+
+    fused = eq2_route_counter("fused")
+    before = fused.value
+    got = step()
+    assert fused.value == before + 1
+    monkeypatch.setattr(ops, "kgrad_pass_or_none", lambda *args: None)
+    want = step()
+    for a, b in zip(got, want):
+        assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b)), (got, want)
+
+
+def test_float64_pallas_backward_keeps_the_loop_on_card(cuda):
+    """B5 computes in fp32, so a float64 X on the card keeps the autograd
+    loop: the pallas operator's gradients are the partitioned operator's
+    in float64 (the same loop; 1e-12 of the largest, far below fp32's
+    ~1e-7); the same problem in float32 takes B5."""
+    from repro_torch.core.kernels_math import init_params, params_leaves
+    from repro_torch.core.operators import OperatorConfig, make_operator
+    from repro_torch.kernels import kgrad
+
+    rng = np.random.default_rng(3)
+    X, A, V = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float64,
+                               device=cuda) for s in ((1000, 9), (1000, 4), (1000, 4)))
+
+    def grads(backend, dtype):
+        op = make_operator(OperatorConfig(kernel="matern32", backend=backend),
+                           X.to(dtype), init_params(lengthscale=1.3, noise=0.05,
+                                                     dtype=dtype, device=cuda),
+                           device=cuda)
+        return op.routed_quad_form_grads(A.to(dtype), V.to(dtype), need_x=False)
+
+    before = kgrad.launches
+    gp, gx, route = grads("pallas", torch.float64)
+    want, want_x, _ = grads("partitioned", torch.float64)
+    assert (route, kgrad.launches) == ("autograd", before)
+    for a, b in [*zip(params_leaves(gp), params_leaves(want)), (gx, want_x)]:
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-12 * float(b.abs().max()))
+    assert grads("pallas", torch.float32)[2] == "fused"
+    assert kgrad.launches == before + 1
