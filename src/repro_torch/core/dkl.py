@@ -5,8 +5,10 @@ The counterpart of `repro.core.dkl`. The MLL's autograd Function
 inputs X as well as the hyperparameters, so an exact GP can sit on top of
 any differentiable feature extractor phi: gradients reach phi's parameters
 through `g_X`. For the LM backbones phi is the mean-pooled final hidden
-state (`pooled_features`); `mlp_apply` is a plain MLP for standalone DKL
-regression.
+state (`pooled_features`, for every family `models.forward_hidden` takes,
+the port-only granitemoehybrid included); `mlp_apply` is a plain MLP for
+standalone DKL regression. `train.gp_trainer.fit_dkl` trains the backbone
+and the head together.
 
     loss(theta, phi_params) = -MLL( phi(X; phi_params), y, theta ) / n
 

@@ -37,17 +37,18 @@ def _repeat_kv(k, n_rep: int):
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0, chunk: int = 1024,
-              q_offset: int = 0):
+              q_offset: int = 0, scale: float | None = None):
     """q (B, Sq, Hq, hd); k/v (B, Sk, Hkv, hd) -> (B, Sq, Hq, hd).
 
     window > 0 adds a sliding-window constraint (keys within `window` of
-    the query). q_offset is the absolute position of q[0].
+    the query). q_offset is the absolute position of q[0]. `scale`
+    multiplies the scores (None = hd ** -0.5).
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     k = _repeat_kv(k, hq // hkv)
     v = _repeat_kv(v, hq // hkv)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     chunk = min(chunk, sq)
     pad = (-sq) % chunk
     if pad:

@@ -27,10 +27,10 @@ def normal_init(shape, scale: float, generator, dtype, device) -> torch.Tensor:
                                device=device)
 
 
-def rmsnorm(x, scale):
+def rmsnorm(x, scale, eps: float = 1e-6):
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + 1e-6)
+    out = x32 * torch.rsqrt(var + eps)
     return (out * scale.to(torch.float32)).to(x.dtype)
 
 

@@ -26,6 +26,12 @@ Modality stubs: a batch may carry precomputed frame / patch embeddings;
 `embeds` alone replaces the tokens (audio), and with `embed_mask` it
 overrides the masked positions of the token embedding (vlm).
 
+A port-only family with its own config type and module
+(`models/hybrid_moe.py`, granitemoehybrid) goes through the same entry
+points: `init_params`, `forward_hidden` and `count_params` dispatch on
+its config; `train_loss`, `init_decode_state`, `prefill` and
+`decode_step` raise NotImplementedError for it.
+
 Entry points run on the card unless the caller passes `device="cpu"`:
 `init_params` (and `LM`) and `init_decode_state` raise without one.
 `count_params` builds the LM on the `meta` device, allocating nothing.
@@ -42,6 +48,7 @@ from torch import nn
 from ..device import resolve_device
 from .attention import qkv_proj
 from .blocks import Block, init_layer_cache
+from . import hybrid_moe
 from .config import ArchConfig
 from .layers import apply_norm, apply_positional, norm_param, normal_init, positions_for
 from .shardctx import checkpoint, shard, shard_hidden
@@ -78,6 +85,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 dtype=torch.bfloat16, device=None) -> LM:
     """A randomly initialised LM on `device` (None = the card), drawn from
     `generator` (None = a generator on that device seeded 0)."""
+    if hybrid_moe.is_hybrid_moe(cfg):
+        return hybrid_moe.HybridMoELM(cfg, generator, dtype, device)
     return LM(cfg, generator, dtype, device)
 
 
@@ -137,7 +146,11 @@ def encode(cfg, lm: LM, enc_embeds):
 
 def forward_hidden(cfg, lm: LM, batch, positions=None):
     """Decoder hidden states (B, S, D) and the summed MoE aux loss for a
-    training / prefill batch, on the LM's device."""
+    training / prefill batch, on the LM's device (granitemoehybrid: its
+    tokens alone, and an aux loss of 0, which the family leaves out)."""
+    if hybrid_moe.is_hybrid_moe(cfg):
+        h = hybrid_moe.forward_hidden(cfg, lm, batch["tokens"])
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
     h = _embed_input(cfg, lm, batch)
     b, s, _ = h.shape
     if positions is None:
@@ -187,6 +200,8 @@ def _chunked_ce(cfg, embed, h, targets):
 
 def train_loss(cfg: ArchConfig, lm: LM, batch):
     """Mean CE (+ MoE aux) for one batch; metrics dict second."""
+    if hybrid_moe.is_hybrid_moe(cfg):
+        raise hybrid_moe.unsupported(cfg, "train_loss")
     h, aux = forward_hidden(cfg, lm, batch)
     targets = torch.as_tensor(batch["targets"], device=h.device)
     ce = _chunked_ce(cfg, lm.embed, h, targets)
@@ -207,6 +222,8 @@ def init_decode_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                       *, enc_len: int = 0, device=None) -> dict:
     """{"caches": one `init_layer_cache` dict per layer, "t": 0} on `device`
     (None = the card)."""
+    if hybrid_moe.is_hybrid_moe(cfg):
+        raise hybrid_moe.unsupported(cfg, "decoding")
     dev = resolve_device(device)
     return {"caches": [init_layer_cache(cfg, batch, max_seq, dtype, dev,
                                         enc_len=enc_len)
@@ -242,6 +259,8 @@ def prefill(cfg, lm: LM, state, batch):
     As the reference: the training forward plus cache writes, each layer's
     K/V recomputed from its normed input into slots [0, S) of the cache;
     for ssm / hybrid the final SSD state seeds the recurrence."""
+    if hybrid_moe.is_hybrid_moe(cfg):
+        raise hybrid_moe.unsupported(cfg, "prefill")
     h = shard_hidden(_embed_input(cfg, lm, batch), sp=False)
     b, s, _ = h.shape
     positions = positions_for(cfg, b, s, device=h.device)
@@ -271,6 +290,8 @@ def decode_step(cfg, lm: LM, state, token_or_embed):
     """One decode step at position state["t"]: token_or_embed is (B,) int
     tokens or (B, 1, D) embeddings. Writes the caches in place, advances
     state["t"] (a host int); (state, logits (B, V) fp32)."""
+    if hybrid_moe.is_hybrid_moe(cfg):
+        raise hybrid_moe.unsupported(cfg, "decoding")
     x = torch.as_tensor(token_or_embed, device=lm.embed.device)
     if x.ndim == 1:
         x = lm.embed[x][:, None]
@@ -291,15 +312,19 @@ def decode_step(cfg, lm: LM, state, token_or_embed):
 
 def count_params(cfg, lm: LM | None = None) -> int:
     if lm is None:
-        lm = LM(cfg, device="meta")
+        lm = init_params(cfg, device="meta")
     return sum(int(math.prod(p.shape)) for p in lm.parameters())
 
 
 def count_active_params(cfg) -> int:
-    """Per-token active parameters (MoE: top-k + shared only)."""
+    """Per-token active parameters (MoE: top-k + shared only; of a
+    granitemoehybrid config holding a share of the experts, the share's)."""
     total = count_params(cfg)
     if not cfg.n_experts:
         return total
+    if hybrid_moe.is_hybrid_moe(cfg):
+        per_expert = 3 * cfg.d_model * cfg.d_ff
+        return total - cfg.n_layers * max(len(cfg.held) - cfg.top_k, 0) * per_expert
     per_expert = 3 * cfg.d_model * cfg.d_ff
     inactive = cfg.n_layers * (cfg.n_experts - cfg.top_k) * per_expert
     return total - inactive

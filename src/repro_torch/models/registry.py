@@ -22,13 +22,24 @@ ARCH_IDS = (
 )
 
 
+# architectures only the port runs (no reference counterpart): resolved by
+# `get_arch` like the others, listed apart so that `ARCH_IDS` and
+# `list_archs()` stay the reference's
+PORT_ARCH_IDS = (
+    "granite-4.0-h-small",
+)
+
+
 def _module_name(arch_id: str) -> str:
     return arch_id.replace("-", "_").replace(".", "_")
 
 
 def get_arch(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; options: {ARCH_IDS}")
+    """The config of `arch_id`: an `ArchConfig`, or for a port-only id its
+    family's own config type (`HybridMoEConfig`)."""
+    if arch_id not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; options: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
 

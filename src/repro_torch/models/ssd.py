@@ -5,7 +5,8 @@ is processed in chunks of `ssm_chunk`: within a chunk the output is the
 masked-decay "attention" form, across chunks a recurrent state
 (B, H, P, N) is carried; the reference's `lax.scan` over chunks is a
 Python loop here. Per-head scalar decay a_t = exp(-exp(A_log) * dt_t), one
-B/C group, a gated RMSNorm before the output projection, a depthwise
+B/C group, a gated RMSNorm before the output projection (eps: the
+config's `norm_eps` where it has one, else 1e-6), a depthwise
 causal conv on (x, B, C), softplus dt with a bias, and the D skip.
 
 `A_log`, `dt_bias` and `D` are fp32 whatever the model's dtype, and so are
@@ -67,8 +68,11 @@ def _causal_conv(xbc, w, b):
     return F.silu(out + b)
 
 
-def _chunk_step(Hstate, xc, Bc, Cc, dtc, lac):
-    """One chunk: its outputs (B, q, H, P) and the carried state after it."""
+def _chunk_step(Hstate, xc, Bc, Cc, dtc, lac, carry: bool = True):
+    """One chunk: its outputs (B, q, H, P) and, with `carry`, the state
+    after it (else None). Hstate None is the zero state: the first chunk
+    reads no state and the last forms none (a sequence of one chunk forms
+    no (B, H, P, N) state at all); the outputs are the same."""
     q = xc.shape[1]
     # intra-chunk "attention": L[q, k] = exp(la_q - la_k) for q >= k
     Gm = torch.einsum("bqn,bkn->bqk", Cc, Bc)
@@ -81,15 +85,19 @@ def _chunk_step(Hstate, xc, Bc, Cc, dtc, lac):
     dtx = xc * dtc[..., None]                                # (B, q, H, P)
     GL = Gm[:, :, :, None] * Ld                              # (B, q, k, H)
     y = torch.einsum("bqkh,bkhp->bqhp", GL, dtx)
-    # inter-chunk contribution from the carried state
-    y_in = torch.einsum("bqn,bhpn->bqhp", Cc, Hstate)
-    y = y + y_in * torch.exp(lac)[..., None]
+    if Hstate is not None:
+        # inter-chunk contribution from the carried state
+        y_in = torch.einsum("bqn,bhpn->bqhp", Cc, Hstate)
+        y = y + y_in * torch.exp(lac)[..., None]
+    if not carry:
+        return None, y
     # chunk state update
     la_end = lac[:, -1:, :]                                  # (B, 1, H)
     dtxd = dtx * torch.exp(la_end - lac)[..., None]          # (B, q, H, P)
     Snew = torch.einsum("bkn,bkhp->bhpn", Bc, dtxd)
-    Hstate = torch.exp(la_end[:, 0, :])[..., None, None] * Hstate + Snew
-    return Hstate, y
+    if Hstate is None:
+        return Snew, y
+    return torch.exp(la_end[:, 0, :])[..., None, None] * Hstate + Snew, y
 
 
 def ssd_apply(p, cfg, x):
@@ -130,17 +138,17 @@ def _ssd_apply(p, cfg, x):
     dt_c = dt.reshape(bsz, nc, q, h)
     la_c = torch.cumsum(a_log.reshape(bsz, nc, q, h), dim=2)  # within-chunk
 
-    Hstate = torch.zeros((bsz, h, pdim, n), dtype=torch.float32, device=x.device)
+    Hstate = None
     ys = []
     for c in range(nc):
         Hstate, y = _chunk_step(Hstate, xs_c[:, c], B_c[:, c], C_c[:, c],
-                                dt_c[:, c], la_c[:, c])
+                                dt_c[:, c], la_c[:, c], carry=c < nc - 1)
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(bsz, s, h, pdim)
     y = y + p["D"][None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(bsz, s, dinner).to(x.dtype)
     # gated RMSNorm (mamba2), then the output projection
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])
+    y = rmsnorm(y * F.silu(z), p["norm_scale"], getattr(cfg, "norm_eps", 1e-6))
     return (y @ p["out_proj"])[:, :s_orig]
 
 

@@ -18,6 +18,11 @@ probes. On the `pallas` backend with `autotune` set, each full-data stage
 resolves the fused kernels' column split for its training shape first
 (`repro_torch.kernels.autotune.prewarm`), so a sweep's time lands in set-up.
 
+`fit_dkl` trains a deep-kernel-learning model (`repro_torch.core.dkl`):
+Adam over the backbone's leaves and the GP head's together, the head's MLL
+through `ExactGP.mll` (the `_ExactMLL` Function and its Eq. 2 backward,
+which hands the backbone its feature gradient g_X). A port-only entry.
+
 Also the paper's baselines, with the reference's settings: `fit_sgpr` (100
 steps of Adam(0.1), m = 512) and `fit_svgp` (100 epochs of Adam(0.01),
 batch 1024, m = 1024; the epochs' permutations from
@@ -44,7 +49,7 @@ from repro_torch.core.kernels_math import (
 from repro_torch.core.sgpr import SGPRParams, init_sgpr_params, sgpr_loss
 from repro_torch.core.svgp import SVGPParams, init_svgp_params, svgp_loss
 from repro_torch.device import resolve_device
-from repro_torch.optim import adam_init, adam_update, lbfgs_minimize
+from repro_torch.optim import AdamState, adam_init, adam_update, lbfgs_minimize
 from repro_torch.train.solver_state import WarmStartConfig, WarmStartEngine
 
 
@@ -360,3 +365,139 @@ def fit_svgp(kind: str, X, y, num_inducing: int = 1024, *, epochs: int = 100,
         if verbose and e % 10 == 0:
             print(f"  svgp epoch {e}: {trace[-1]:.5f}")
     return params, trace, time.time() - t0
+
+
+# ---------------------------------------------------------------------------
+# deep kernel learning: a backbone and an exact-GP head, trained together
+# ---------------------------------------------------------------------------
+
+
+class DKLTrainConfig(NamedTuple):
+    """Adam steps at one learning rate over the backbone and the GP head.
+
+    microbatch: sequences (rows) per backbone micro-batch; 0 = one pass.
+    One pass keeps the whole batch's autograd graph from the features to
+    the backward. Micro-batches bound it by a batch's share: the features
+    of all rows first under `no_grad`, then the MLL and its X gradient
+    g_X, then per micro-batch a recomputed forward and a backward with its
+    rows of g_X, the gradients accumulated in fp32. The features are per
+    row, so both routes give one gradient, up to rounding."""
+
+    adam_steps: int = 3
+    lr: float = 3e-3
+    microbatch: int = 0
+
+
+class DKLFitResult(NamedTuple):
+    phi_params: object    # the backbone: a module (updated in place) or a tree
+    gp_params: GPParams
+    state: AdamState      # Adam's over (backbone leaves, GP leaves)
+    loss_trace: list
+    route: str            # "one_pass" or "microbatch"
+    microbatches: int     # backbone micro-batches a step
+    seconds: float
+
+
+def _phi_leaves(phi):
+    """(phi as the step uses it, its trainable leaves): a module's
+    parameters, or a tree's leaves made leaves of autograd."""
+    if isinstance(phi, torch.nn.Module):
+        return phi, [p for p in phi.parameters() if p.requires_grad]
+    leaves = [a.detach().requires_grad_(True) for a in params_leaves(phi)]
+    return params_unflatten(phi, leaves), leaves
+
+
+def dkl_route(n: int, microbatch: int) -> tuple[str, int]:
+    """(route, micro-batches a step) for n rows."""
+    if 0 < microbatch < n:
+        return "microbatch", -(-n // microbatch)
+    return "one_pass", 1
+
+
+def _dkl_step(model, tokens, y, phi, leaves, gp_params, generator, microbatch):
+    """One DKL loss and gradient: (loss, MLLAux, features, g_X, the
+    backbone's gradients (one per leaf), the GP head's)."""
+    n = tokens.shape[0]
+    dev = y.device
+    route, _ = dkl_route(n, microbatch)
+    mb = microbatch if route == "microbatch" else n
+    with obs.span("dkl_features", route=route):
+        if route == "one_pass":
+            feats = model.phi_apply(phi, tokens)
+        else:
+            with torch.no_grad():
+                feats = torch.cat([model.phi_apply(phi, tokens[i:i + mb])
+                                   for i in range(0, n, mb)])
+        _fence(dev)
+    with obs.span("dkl_gp_head"):
+        fx = feats.detach().requires_grad_(True)
+        gl = [a.detach().requires_grad_(True) for a in params_leaves(gp_params)]
+        value, aux = model.gp.mll(fx, y, params_unflatten(gp_params, gl), generator)
+        loss = -value / n
+        g_X, *g_gp = torch.autograd.grad(loss, [fx, *gl])
+        _fence(dev)
+    with obs.span("dkl_backbone_backward", route=route):
+        if route == "one_pass":
+            g_phi = list(torch.autograd.grad(feats, leaves, grad_outputs=g_X,
+                                             allow_unused=True))
+        else:
+            g_phi = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+                     for a in leaves]
+            for i in range(0, n, mb):
+                f = model.phi_apply(phi, tokens[i:i + mb])
+                gs = torch.autograd.grad(f, leaves, grad_outputs=g_X[i:i + mb],
+                                         allow_unused=True)
+                for acc, g in zip(g_phi, gs):
+                    if g is not None:
+                        acc += g
+        g_phi = [torch.zeros_like(a) if g is None else g for a, g in zip(leaves, g_phi)]
+        _fence(dev)
+    return (loss.detach(), aux, feats.detach(), g_X, g_phi,
+            params_unflatten(gp_params, g_gp))
+
+
+def fit_dkl(model, tokens, y, phi_params, gp_params, *,
+            cfg: DKLTrainConfig = DKLTrainConfig(), state: AdamState | None = None,
+            generator: torch.Generator | None = None, device=None) -> DKLFitResult:
+    """Train a `DKLModel` for `cfg.adam_steps` Adam steps: the loss is the
+    per-datum negative MLL of the GP head on `model.phi_apply(phi_params,
+    tokens)`, and one Adam (`optim.adam_update`, fp32 moments) at `cfg.lr`
+    moves the backbone's leaves and the head's. A module backbone is
+    updated in place (its parameters take the new tensors); a tree comes
+    back new. `state` continues an Adam state over (backbone leaves, GP
+    leaves) (None = a fresh one). generator: the SLQ probes (None = a
+    generator on the device seeded 0). device None = the card.
+
+    Under tracing each step emits `dkl_features`, `dkl_gp_head` (the MLL
+    forward and backward, up to g_X), `dkl_backbone_backward` and
+    `dkl_adam`, each closed by a synchronize; the counter
+    `dkl.microbatches` adds the backbone's micro-batches of each step."""
+    t0 = time.time()
+    dev = resolve_device(device)
+    tokens = torch.as_tensor(tokens, device=dev)
+    y = torch.as_tensor(y, device=dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    route, count = dkl_route(tokens.shape[0], cfg.microbatch)
+    trace: list = []
+    phi, leaves = _phi_leaves(phi_params)
+    if state is None:
+        state = adam_init((tuple(leaves), gp_params))
+    for i in range(cfg.adam_steps):
+        loss, _, _, _, g_phi, g_gp = _dkl_step(model, tokens, y, phi, leaves, gp_params,
+                                               generator, cfg.microbatch)
+        obs.counter("dkl.microbatches").inc(count)
+        with obs.span("dkl_adam", step=i):
+            (new, gp_params), state = adam_update(
+                (tuple(leaves), gp_params), (tuple(g_phi), g_gp), state, cfg.lr)
+            del g_phi
+            if isinstance(phi, torch.nn.Module):
+                for p, v in zip(leaves, new):
+                    p.data = v
+            else:
+                phi, leaves = _phi_leaves(params_unflatten(phi, list(new)))
+            _fence(dev)
+        trace.append(float(loss))
+    return DKLFitResult(phi_params=phi, gp_params=gp_params, state=state,
+                        loss_trace=trace, route=route, microbatches=count,
+                        seconds=time.time() - t0)
